@@ -2,9 +2,11 @@
 report per-frame times.
 
 Port of ``stereo_semantic_vo_tpu.engine.pipeline.VOPipeline`` without the
-online detector (ROADMAP A10) and without windowed local BA (ROADMAP A9):
-those arguments raise ``NotImplementedError``.  Frame decode runs on a
-prefetch thread; frames are copied to the device from pinned memory without
+online detector (ROADMAP A10) and without the mesh-sharded window BA
+(ROADMAP A11): those arguments raise ``NotImplementedError``.  With
+``local_ba_every=N`` the window BA (engine/window_ba.py) refines the state
+every N-th frame once the window is full.  Frame decode runs on a prefetch
+thread; frames are copied to the device from pinned memory without
 blocking; frame t-1's outputs are read back after frame t is dispatched, so
 the host never waits on the step it just queued.
 """
@@ -20,9 +22,11 @@ from typing import Any, Iterable
 import numpy as np
 import torch
 
+from stereo_semantic_vo_tpu_torch.core import lie
 from stereo_semantic_vo_tpu_torch.core.config import VOConfig
 from stereo_semantic_vo_tpu_torch.engine.state import init_state
 from stereo_semantic_vo_tpu_torch.engine.tracker import FrameInput, init_step, track_step
+from stereo_semantic_vo_tpu_torch.engine.window_ba import refine_state
 from stereo_semantic_vo_tpu_torch.engine.trajectory import TrajectoryWriter
 
 
@@ -60,9 +64,10 @@ class VOPipeline:
     ):
         if detector is not None:
             raise NotImplementedError("online detection is not ported yet (ROADMAP A10)")
-        if local_ba_every > 0 or ba_mesh is not None:
-            raise NotImplementedError("windowed local BA is not ported yet (ROADMAP A9, A11)")
+        if ba_mesh is not None:
+            raise NotImplementedError("the sharded window BA is not ported yet (ROADMAP A11)")
         self.cfg = cfg
+        self.local_ba_every = local_ba_every
         self.device = torch.device(device)
         self.state = init_state(cfg, self.device)
         # tracking-lost recovery: reseed the map after N consecutive PnP
@@ -117,6 +122,17 @@ class VOPipeline:
         else:
             self.state, out = track_step(self.state, frame, self.cfg)
         self._n_processed += 1
+
+        fidx = self._n_processed - 1
+        if (
+            self.local_ba_every > 0
+            and fidx % self.local_ba_every == 0
+            and self._n_processed >= self.cfg.window.window_frames
+        ):
+            self.state = refine_state(self.state, self.cfg)
+            # the closed-form rigid inverse; the reference's jnp.linalg.inv
+            # agrees to float32 rounding (~1e-7)
+            out = out._replace(T_cw=self.state.T_cw, T_wc=lie.T_inv(self.state.T_cw))
 
         # one-frame-deferred readback: consume frame t-1 after dispatching t
         prev = self._pending

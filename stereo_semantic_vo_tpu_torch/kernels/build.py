@@ -1,10 +1,11 @@
 """Build the package's CUDA kernels at first use and bind them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (Hopper) into
-one shared library with a plain C interface.  The sources include no PyTorch
-headers, so a build takes seconds.  The library lands in ``build/`` beside
-this package, named by a hash of the sources and flags, so an edited source
-is rebuilt and an unchanged one is reused.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``
+(Hopper), all started together, and the objects are linked into one shared
+library with a plain C interface.  The sources include no PyTorch headers,
+so a build takes seconds.  The library lands in ``build/`` beside this
+package, named by a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is reused.
 
 Each C entry point takes device pointers and sizes plus the CUDA stream, as
 Python ints, launches on that stream and returns ``cudaGetLastError()``.
@@ -26,10 +27,10 @@ SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: (pointers..., sizes..., stream) -> cudaError_t as int
 SIGNATURES = {
     "ssvo_extract_patches": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
@@ -38,6 +39,8 @@ SIGNATURES = {
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float, _P, _P,
     ],
     "ssvo_fused_best_match": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "ssvo_sgm_directional": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    "ssvo_local_ba_blocks": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -89,20 +92,35 @@ def library() -> KernelLibrary:
     log, seconds = "", 0.0
     if not os.path.exists(path):
         t0 = time.perf_counter()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-            capture_output=True, text=True,
-        )
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+        log = _compile_and_link(sources, path)
         seconds = time.perf_counter() - t0
     _library = KernelLibrary(path, log, seconds)
     return _library
+
+
+def _compile_and_link(sources: list[str], path: str) -> str:
+    """One nvcc per source, all at once, then one link; -> the compilers'
+    output (ptxas registers, shared memory and spills per kernel)."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in sources]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(sources, objs)
+        ]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(outs)
+        failed = [s for s, p in zip(sources, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs], capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        os.replace(lib, path)  # atomic: a concurrent loader never sees half a file
+    return log
 
 
 def stream_handle(t) -> int:

@@ -8,8 +8,10 @@ and validity gates.
 Modes: "pallas" computes the costs with the CUDA kernel
 (``kernels/sparse_stereo.py``; on a CPU tensor, its plain version) and
 "strips" with the plain version directly; "auto" picks "pallas" on a CUDA
-device and "strips" on the CPU.  The cost-volume modes "volume" and
-"volume2" and the dense SGM mode "dense" are not ported yet (ROADMAP A3, A8).
+device and "strips" on the CPU.  "dense" solves the full dense disparity
+(``ops/dense_stereo.py``) and samples it at the keypoints, as the
+reference's frame.cc does with MSA.  The cost-volume modes "volume" and
+"volume2" are not ported yet (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from stereo_semantic_vo_tpu_torch.core.camera import Camera, disparity_to_depth
 from stereo_semantic_vo_tpu_torch.core.config import StereoConfig, resolve_backend
+from stereo_semantic_vo_tpu_torch.ops.dense_stereo import dense_disparity
 from stereo_semantic_vo_tpu_torch.kernels.sparse_stereo import (
     keypoint_stereo_costs,
     keypoint_stereo_costs_plain,
@@ -46,16 +49,18 @@ def sparse_disparity(
     left/right: (H, W) float32 grayscale in [0, 255]; uv: (K, 2) float32
     keypoint pixel coords (x, y) in the left image."""
     mode = resolve_backend(cfg.sparse_mode, left.device, "pallas", "strips")
-    if mode not in ("pallas", "strips"):
-        raise NotImplementedError(f"sparse_mode={mode!r} is not ported yet (ROADMAP A3, A8)")
+    if mode not in ("pallas", "strips", "dense"):
+        raise NotImplementedError(f"sparse_mode={mode!r} is not ported yet (ROADMAP A3)")
     H, W = left.shape
+    x = torch.round(uv[:, 0]).to(torch.int32)  # round half to even, as jnp.round
+    y = torch.round(uv[:, 1]).to(torch.int32)
+    if mode == "dense":
+        return _dense_at_keypoints(left, right, x, y, kp_valid, cam, cfg)
     D = cfg.max_disparity
     r = cfg.block_radius
     P = 2 * r + 1
     Ws = D + 2 * r
     big = 1e9
-    x = torch.round(uv[:, 0]).to(torch.int32)  # round half to even, as jnp.round
-    y = torch.round(uv[:, 1]).to(torch.int32)
     d_idx = torch.arange(D, device=left.device)[None, :]
 
     y0 = torch.clamp(y - r, 0, H - P)
@@ -97,3 +102,18 @@ def sparse_disparity(
     )
     depth = torch.where(valid, disparity_to_depth(cam, disp, cfg.min_disparity), 0.0)
     return StereoMatch(disparity=torch.where(valid, disp, -1.0), depth=depth, valid=valid, cost=c0)
+
+
+def _dense_at_keypoints(left, right, x, y, kp_valid, cam, cfg: StereoConfig) -> StereoMatch:
+    """Dense disparity sampled at the rounded, clipped keypoints, gated on
+    the LR-consistent (measured) pixels: refine-repaired disparities are
+    inpainted, not observed, and must not seed map points."""
+    H, W = left.shape
+    dd = dense_disparity(left, right, cfg)
+    flat = torch.clamp(y, 0, H - 1).to(torch.int64) * W + torch.clamp(x, 0, W - 1)
+    disp = dd.disparity.reshape(-1)[flat]
+    valid = kp_valid & dd.measured.reshape(-1)[flat] & (disp > cfg.min_disparity)
+    depth = torch.where(valid, disparity_to_depth(cam, disp, cfg.min_disparity), 0.0)
+    return StereoMatch(
+        disparity=torch.where(valid, disp, -1.0), depth=depth, valid=valid, cost=torch.zeros_like(disp)
+    )

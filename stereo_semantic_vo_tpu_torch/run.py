@@ -6,9 +6,10 @@ Example:
       --seq-id 01 --boxes-dir /data/boxes/0.05results --out out/
 
 Runs on the first CUDA device when there is one, on the CPU otherwise.
-Online detection (--yolo-cfg / --yolo-weights), windowed local BA
-(--local-ba) and dense stereo (--dense-stereo) are not ported yet and exit
-with an error.
+``--dense-stereo`` samples the dense SGM disparity at the keypoints and
+``--local-ba N`` refines the 4-frame window every N frames; on a CUDA
+device both run on the package's kernels.  Online detection (--yolo-cfg /
+--yolo-weights) is not ported yet and exits with an error.
 """
 
 from __future__ import annotations
@@ -22,8 +23,6 @@ import torch
 _NOT_PORTED = {
     "yolo_cfg": "--yolo-cfg (online detection, ROADMAP A10)",
     "yolo_weights": "--yolo-weights (online detection, ROADMAP A10)",
-    "local_ba": "--local-ba (windowed local BA, ROADMAP A9)",
-    "dense_stereo": "--dense-stereo (dense SGM stereo, ROADMAP A8)",
 }
 
 
@@ -54,10 +53,12 @@ def main() -> None:
     cfg = VOConfig.kitti(args.seq_id)
     if args.no_semantics:
         cfg = dataclasses.replace(cfg, use_semantics=False)
+    if args.dense_stereo:
+        cfg = dataclasses.replace(cfg, stereo=dataclasses.replace(cfg.stereo, sparse_mode="dense"))
     device = "cuda" if torch.cuda.is_available() else "cpu"
     paths = kitti.load_sequence_paths(args.sequence)
     frames = kitti.iter_frames(paths, args.boxes_dir, cfg.semantic.max_boxes, args.max_frames)
-    summary = VOPipeline(cfg, device=device, out_dir=args.out).run(frames)
+    summary = VOPipeline(cfg, device=device, out_dir=args.out, local_ba_every=args.local_ba).run(frames)
     report = {k: v for k, v in summary.items() if k != "positions"}
     report["device"] = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
 

@@ -37,6 +37,20 @@ def test_kitti_config_asdict_equal(seq):
     assert dataclasses.asdict(JC.VOConfig.kitti(seq)) == dataclasses.asdict(TC.VOConfig.kitti(seq))
 
 
+def test_dense_local_ba_config_round_trip():
+    """Every dense-stereo and window-BA knob crosses from the JAX package
+    (a knob the port dropped would make the dicts differ)."""
+    k = JC.VOConfig.kitti("00")
+    cfg = dataclasses.replace(
+        k,
+        stereo=dataclasses.replace(k.stereo, sparse_mode="dense", dense_backend="xla", edge_p2_gamma=7.0,
+                                   refine=False, lr_consistency_px=2.0),
+        ba=dataclasses.replace(k.ba, local_hessian_backend="pallas", local_iterations=3, max_landmarks=1024),
+        window=JC.WindowConfig(window_frames=6, max_map_points=3072),
+    )
+    assert dataclasses.asdict(interop.config_from_jax(cfg)) == dataclasses.asdict(cfg)
+
+
 def test_default_config_equal_and_converted():
     assert dataclasses.asdict(JC.VOConfig()) == dataclasses.asdict(TC.VOConfig())
     assert interop.config_from_jax(JC.VOConfig.kitti("07")) == TC.VOConfig.kitti("07")

@@ -8,7 +8,10 @@ JAX, so it also runs on a machine that has only PyTorch, from the repo root:
 
 Tolerances: patches and matcher outputs exact; stereo costs rtol 1e-5
 (the kernel sums in the plain version's order, so they are equal in
-practice); disparities atol 1e-4 with equal valid masks."""
+practice); disparities atol 1e-4 with equal valid masks; SGM aggregation
+exact (min, add and subtract in the plain version's order); the local-BA
+blocks rtol 3e-5, atol 1e-4 x max|plain|, cost rtol 1e-5
+(tests/test_ba_hessian.py's bounds: float32 sums in another order)."""
 
 import dataclasses
 
@@ -21,8 +24,12 @@ from stereo_semantic_vo_tpu_torch.core.config import CameraConfig, StereoConfig,
 from stereo_semantic_vo_tpu_torch.engine import tracker as TT
 from stereo_semantic_vo_tpu_torch.engine.state import init_state
 from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
+from stereo_semantic_vo_tpu_torch.engine.window_ba import refine_state
+from stereo_semantic_vo_tpu_torch.kernels import ba_hessian as TB
 from stereo_semantic_vo_tpu_torch.kernels import matcher as TM
 from stereo_semantic_vo_tpu_torch.kernels import patch_extract as TP
+from stereo_semantic_vo_tpu_torch.kernels import sgm_scan as TG
+from stereo_semantic_vo_tpu_torch.ops.dense_stereo import cost_volume, edge_p2_planes
 from stereo_semantic_vo_tpu_torch.kernels import sparse_stereo as TS
 from stereo_semantic_vo_tpu_torch.ops.stereo import sparse_disparity
 
@@ -111,6 +118,94 @@ def test_matcher_kernel_matches_plain(Q, case):
         assert torch.equal(g, w)
     if case == "duplicates":
         assert int(got[0][20]) == 4 and int(got[1][20]) == 0
+
+
+@pytest.mark.parametrize(
+    "shape,case",
+    [((376, 1241, 48), "scalar"), ((376, 1241, 48), "planes"), ((376, 1241, 48), "half"),
+     ((13, 67, 33), "planes"), ((20, 40, 17), "planes"), ((9, 5, 64), "scalar")],
+)
+def test_sgm_kernel_matches_plain(shape, case):
+    """Bit-equal at the path's shape, and at D above and below one warp."""
+    dev = cuda_device()
+    H, W, D = shape
+    rng = np.random.RandomState(H + W + D)
+    if shape == (376, 1241, 48):
+        left, right = (t(a, dev) for a in two_plane_frame_source(H, W)(1))
+        sc = StereoConfig(edge_p2=True, edge_p2_gamma=5.0)
+        vol = cost_volume(left, right, sc)
+        ph, pv = edge_p2_planes(left, sc)
+    else:
+        vol = t(rng.uniform(0, 3, shape).astype(np.float32), dev)
+        ph, pv = (t(rng.uniform(1, 8, (H, W)).astype(np.float32), dev) for _ in range(2))
+    scale = 0.5 if case == "half" else 1.0
+    planes = (None, None) if case == "scalar" else (ph * scale, pv * scale)
+    args = (vol, 1.0 * scale, 8.0 * scale, *planes)
+    before = TG.sgm_aggregate.launches
+    got = TG.sgm_aggregate(*args)
+    torch.cuda.synchronize()
+    assert TG.sgm_aggregate.launches == before + 4
+    assert torch.equal(got, TG.sgm_aggregate_plain(*args))
+
+
+def _ba_problem(dev, F, L, stereo, seed=0):
+    rng = np.random.RandomState(seed)
+    X = np.stack([rng.uniform(-15, 15, L), rng.uniform(-4, 4, L), rng.uniform(8, 50, L)], -1).astype(np.float32)
+    poses = np.stack([np.eye(4, dtype=np.float32)] * F)
+    poses[:, 0, 3] = -0.8 * np.arange(F)
+    poses[:, 2, 3] = 0.3 * np.arange(F)
+    c = CameraConfig()
+    pc = np.einsum("fij,lj->fli", poses[:, :3, :3], X) + poses[:, None, :3, 3]
+    u = c.fx * pc[..., 0] / pc[..., 2] + c.cx
+    v = c.fy * pc[..., 1] / pc[..., 2] + c.cy
+    obs = (np.stack([u, v], -1) + rng.normal(0, 1.5, (F, L, 2))).astype(np.float32)
+    mask = (pc[..., 2] > 0.5) & (rng.rand(F, L) < 0.8)
+    args = [t(a, dev) for a in (poses, X, obs, mask)] + [Camera.from_config(c, dev), 5.991 ** 0.5]
+    if stereo:
+        ur = (u - c.bf / pc[..., 2] + rng.normal(0, 1.2, u.shape)).astype(np.float32)
+        args += [t(ur, dev), t(mask & (rng.rand(F, L) > 0.3), dev)]
+    return args
+
+
+@pytest.mark.parametrize("F,L,stereo", [(4, 2048, True), (4, 2048, False), (8, 517, True), (1, 5, False)])
+def test_local_ba_kernel_matches_plain(F, L, stereo):
+    dev = cuda_device()
+    args = _ba_problem(dev, F, L, stereo)
+    got = _launched(TB.local_ba_blocks, TB.local_ba_blocks, *args)
+    want = TB.local_ba_blocks_plain(*args)
+    for name, a, b in zip(("Hcc", "Hcp", "Hpp", "gc", "gp"), got, want):
+        torch.testing.assert_close(a, b, rtol=3e-5, atol=1e-4 * max(float(b.abs().max()), 1.0), msg=name)
+    torch.testing.assert_close(got[5], want[5], rtol=1e-5, atol=0)
+    again = TB.local_ba_blocks(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: deterministic
+
+
+def test_dense_track_step_and_refine_read_nothing_back():
+    """The dense stereo step and the window refine stay on the device."""
+    dev = cuda_device()
+    k = VOConfig.kitti()
+    cfg = dataclasses.replace(
+        k, camera=CameraConfig(width=320, height=240),
+        orb=dataclasses.replace(k.orb, max_keypoints=256, n_levels=3),
+        stereo=dataclasses.replace(k.stereo, sparse_mode="dense"),
+    )
+    src = two_plane_frame_source(240, 320)
+    boxes, bv = torch.zeros((32, 4), device=dev), torch.zeros(32, dtype=torch.bool, device=dev)
+    state, _ = TT.init_step(init_state(cfg, dev), TT.FrameInput(*(t(a, dev) for a in src(0)), boxes, bv), cfg)
+    for i in range(1, 4):
+        state, _ = TT.track_step(state, TT.FrameInput(*(t(a, dev) for a in src(i)), boxes, bv), cfg)
+    frame = TT.FrameInput(*(t(a, dev) for a in src(4)), boxes, bv)
+    launches = TG.sgm_aggregate.launches, TB.local_ba_blocks.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        refined = refine_state(state, cfg)
+        _, out = TT.track_step(refined, frame, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(out.pnp_ok) and int(out.n_stereo) > 50
+    assert TG.sgm_aggregate.launches == launches[0] + 12
+    assert TB.local_ba_blocks.launches == launches[1] + cfg.ba.local_iterations
 
 
 def test_track_step_reads_nothing_back():

@@ -142,15 +142,13 @@ def test_pipeline_on_cpu_writes_trajectories(tmp_path):
         assert len(open(tmp_path / name).read().strip().split("\n")) == 3
 
 
-@pytest.mark.parametrize("kwargs", [{"detector": object()}, {"local_ba_every": 2}])
+@pytest.mark.parametrize("kwargs", [{"detector": object()}, {"ba_mesh": object()}])
 def test_pipeline_unported_arguments_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         VOPipeline(_kitti_knobs()[1], **kwargs)
 
 
-@pytest.mark.parametrize(
-    "flags", [["--yolo-cfg", "x.cfg"], ["--local-ba", "2"], ["--dense-stereo"]]
-)
+@pytest.mark.parametrize("flags", [["--yolo-cfg", "x.cfg"], ["--yolo-weights", "x.weights"]])
 def test_cli_rejects_unported_flags(flags, tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "stereo_semantic_vo_tpu_torch.run", "--sequence", str(tmp_path), *flags],

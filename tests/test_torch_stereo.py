@@ -80,9 +80,27 @@ def test_sparse_disparity_matches_jax_strips(mode):
     np.testing.assert_allclose(n(b.cost), n(a.cost), rtol=1e-5)
 
 
-@pytest.mark.parametrize("mode", ["volume", "volume2", "dense"])
+@pytest.mark.parametrize("mode", ["volume", "volume2"])
 def test_unported_modes_raise(mode):
     left, right = _scene()
     uv, valid = _keypoints(*left.shape, K=8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A3"):
         t_sparse(t(left), t(right), t(uv), t(valid), TCam.from_config(CameraConfig()), TSC(sparse_mode=mode))
+
+
+def test_dense_mode_matches_jax():
+    """Dense disparity sampled at the keypoints, against the JAX package's
+    dense mode: valid masks differ on at most one keypoint, disparity within
+    0.01 px (the dense disparity inherits a last-bit difference of ``exp``,
+    see test_torch_dense_stereo.py)."""
+    left, right = _scene()
+    uv, valid = _keypoints(*left.shape)
+    a = j_sparse(jnp.asarray(left), jnp.asarray(right), jnp.asarray(uv), jnp.asarray(valid),
+                 JCam.from_config(CameraConfig()), StereoConfig(sparse_mode="dense", dense_backend="xla"))
+    b = t_sparse(t(left), t(right), t(uv), t(valid), TCam.from_config(CameraConfig()), TSC(sparse_mode="dense"))
+    va, vb = n(a.valid), n(b.valid)
+    assert np.sum(va != vb) <= 1 and va.sum() > 30
+    both = va & vb
+    np.testing.assert_allclose(n(b.disparity)[both], n(a.disparity)[both], rtol=0, atol=0.01)
+    np.testing.assert_allclose(n(b.depth)[both], n(a.depth)[both], rtol=1e-3)
+    np.testing.assert_array_equal(n(b.cost), 0.0)
