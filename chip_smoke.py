@@ -16,7 +16,19 @@ Phases, each of which raises (exit code != 0) when it fails:
    (``sparse_mode="dense"``, ``local_ba_every=1``, as
    ``run.py --dense-stereo --local-ba 1`` drives it): ground truth, exact
    launch counts, no host sync in a dense ``track_step`` or in
-   ``refine_state``, a CPU rerun and the steady-state time per frame.
+   ``refine_state``, a CPU rerun and the steady-state time per frame;
+7. the same for the third path, the tracking step with its two kernel knobs
+   on (``orb.fast_backend="pallas"``, ``ba.hessian_backend="pallas"``):
+   ground truth, exact launch counts, its poses against the first path's,
+   no host sync in a ``track_step``, a CPU rerun and the steady-state time
+   per frame.
+
+Each kernel's line entry carries its time and its plain version's (CUDA
+events), the least time the card could take for the same work (``bound_ms``:
+the bytes it must move at 3.35 TB/s or its operations at the card's peak
+rate for their type, whichever is larger, from this run's shapes) and, where
+one PyTorch call computes the same function, that call's time
+(``library_ms``; the port never calls it).
 
 Prints the card (``nvidia-smi``), one JSON line with the kernels, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -39,12 +51,20 @@ N_FRAMES = 30        # GPU run of the slice
 N_CPU_FRAMES = 8     # CPU rerun of the first frames
 N_DENSE_FRAMES = 30  # GPU run of the dense + window-BA path
 N_DENSE_CPU_FRAMES = 5  # its CPU rerun: frames 3 and 4 refine the window
+N_KNOB_FRAMES = 30   # GPU run of the knob path
+N_KNOB_CPU_FRAMES = 8
 POS_BOUND_M = 0.1    # per-frame camera position error against ground truth
 ROT_BOUND_RAD = 0.01  # per-frame rotation error against ground truth (identity)
 CPU_POS_TOL_M = 1e-3  # GPU vs CPU pose agreement (the slice parity tolerance)
 CPU_ROT_TOL_RAD = 1e-3
 STEREO_RTOL = 1e-5
 BA_RTOL, BA_ATOL_REL, BA_COST_RTOL = 3e-5, 1e-4, 1e-5  # tests/test_ba_hessian.py's bounds
+MH_RTOL, MH_ATOL_REL, MH_COST_RTOL = 2e-5, 1e-6, 1e-5  # its motion-build bounds
+PATH_POS_TOL_M = 1e-3  # knob path vs first path: B4 is bit-equal, B5 sums in another order
+PATH_ROT_TOL_RAD = 1e-3
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+FP32_FLOP_PER_S = 67e12    # float32 outside the tensor cores
+POPC_PER_CLOCK_PER_SM = 16
 
 
 def check(cond: bool, msg: str) -> None:
@@ -63,6 +83,23 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def popc_per_s() -> float:
+    """Peak popcounts a second: 16 a clock per SM at the card's top SM clock."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return POPC_PER_CLOCK_PER_SM * sms * float(mhz) * 1e6
+
+
+def bound(nbytes: float, ops: float, op_rate: float = FP32_FLOP_PER_S) -> dict:
+    """The least time the card could take: bytes moved once at the HBM rate
+    or the operations at their peak rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / op_rate
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     """Median over ``reps`` calls of the device time of ``fn()`` (CUDA events)."""
     for _ in range(warmup):
@@ -77,6 +114,18 @@ def median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def covered_pixels(H: int, W: int, y0: torch.Tensor, x0: torch.Tensor, h: int, w: int) -> int:
+    """Pixels of an (H, W) image inside the union of the h x w windows at
+    origins (y0, x0), columns wrapping at W: what a kernel that reads each
+    of them once must read, however much the windows overlap."""
+    dev = y0.device
+    rows = y0.long()[:, None] + torch.arange(h, device=dev)
+    cols = (x0.long()[:, None] + torch.arange(w, device=dev)) % W
+    cover = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    cover[rows[:, :, None], cols[:, None, :]] = True
+    return int(cover.sum())
 
 
 def pyramid_shapes(cfg, H: int, W: int) -> list[tuple[int, int, int]]:
@@ -98,7 +147,7 @@ def compare_patches(cfg, dev, rng) -> dict:
 
     r = cfg.orb.patch_size // 2
     P = 2 * r + 1
-    ms = plain_ms = 0.0
+    ms = plain_ms = lib_ms = nbytes = 0.0
     for H, W, K in pyramid_shapes(cfg.orb, cfg.camera.height, cfg.camera.width):
         img = torch.from_numpy(rng.uniform(0, 255, (H, W)).astype(np.float32)).to(dev)
         y0 = torch.from_numpy(rng.randint(0, H - P + 1, K).astype(np.int32)).to(dev)
@@ -108,13 +157,21 @@ def compare_patches(cfg, dev, rng) -> dict:
         want = extract_patches_plain(img, y0, x0, r)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"patches differ at level shape {H}x{W}, K={K}")
+        # the library yardstick: one gather from the image's (H-P+1, W-P+1, P, P) window view
+        windows, yl, xl = img.unfold(0, P, 1).unfold(1, P, 1), y0.long(), x0.long()
+        check(torch.equal(windows[yl, xl], want), f"unfold gather differs at level shape {H}x{W}")
         ms += median_ms(lambda: extract_patches(img, y0, x0, r))
         plain_ms += median_ms(lambda: extract_patches_plain(img, y0, x0, r))
-    say(f"patches: equal on all 8 level shapes; per frame {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
+        lib_ms += median_ms(lambda: windows[yl, xl])
+        # the image pixels under the union of the patches read once, every
+        # patch pixel written, the origins
+        nbytes += covered_pixels(H, W, y0, x0, P, P) * 4 + K * P * P * 4 + K * 8
+    say(f"patches: equal on all 8 level shapes; per frame {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+        f"{lib_ms:.4f} ms unfold gather")
     return {"name": "extract_patches", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/patch_extract.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/patch_extract.py:75",
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound(nbytes, 0.0), "library_ms": lib_ms}
 
 
 def compare_stereo(cfg, dev, rng) -> dict:
@@ -156,17 +213,23 @@ def compare_stereo(cfg, dev, rng) -> dict:
     plain_ms = median_ms(lambda: keypoint_stereo_costs_plain(*args))
     say(f"stereo costs: max abs err {err} (rtol {STEREO_RTOL}), valid masks equal "
         f"({int(a.valid.sum())}/{K} valid); {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
+    # the union of the left windows and of the right strips, each with a
+    # gradient column either side, read once; the costs and three origins;
+    # 10 flops a window term
+    covered = covered_pixels(H, W, y0, xl0 - 1, P, P + 2) + covered_pixels(H, W, y0, xr0 - 1, P, Ws + 2)
+    nbytes = 4 * covered + 4 * K * D + 12 * K
     return {"name": "keypoint_stereo_costs", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/sparse_stereo.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/sparse_stereo.py:142",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(nbytes, 10.0 * K * D * P * P),
+            "library_ms": None}
 
 
-def compare_matcher(cfg, dev, rng) -> dict:
+def compare_matcher(cfg, dev, rng, popc_rate: float) -> dict:
     from stereo_semantic_vo_tpu_torch.kernels.matcher import fused_best_match, fused_best_match_plain
 
     T = cfg.orb.max_keypoints
-    ms = plain_ms = 0.0
+    ms = plain_ms = bound_ms = 0.0
     for Q in (cfg.window.max_map_points, cfg.orb.max_keypoints):
         q = rng.randint(0, 2**32, (Q, 8), dtype=np.uint64).astype(np.uint32)
         t = rng.randint(0, 2**32, (T, 8), dtype=np.uint64).astype(np.uint32)
@@ -184,12 +247,15 @@ def compare_matcher(cfg, dev, rng) -> dict:
             check(torch.equal(g, w), f"matcher {name} differs at Q={Q}, T={T}")
         ms += median_ms(lambda: fused_best_match(*args))
         plain_ms += median_ms(lambda: fused_best_match_plain(*args))
+        b = bound((Q + T) * 33 + 12 * Q, Q * T * 8, popc_rate)  # words and masks in, 3 ints out
+        bound_ms += b["bound_ms"]
     say(f"matcher: idx, best, second equal at Q=2048 and Q=512 against T={T}; "
         f"per track_step {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
     return {"name": "fused_best_match", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/matcher.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/matcher.py:59",
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": b["bound_by"], "library_ms": None}
 
 
 def frame_aggregations(cfg, dev) -> list[tuple]:
@@ -240,10 +306,15 @@ def compare_sgm(cfg, dev) -> dict:
         "aggregations with P2 planes, its refine at scale 0.5); per aggregation (4 launches) "
         + "; ".join(f"{n} {k:.3f} ms" for (n, _), k in zip(cases, per_case))
         + f"; per frame (3 aggregations) {ms:.3f} ms kernel, {plain_ms:.1f} ms plain")
+    # per aggregation: the volume in, the sum out, the P2 planes; ~8 flops
+    # per cell and direction (the d +- 1 and P2 candidates, their min, the
+    # minus prev_min, the add into the sum), 4 directions
+    nbytes = sum(2 * a[0].numel() * 4 + sum(p.numel() * 4 for p in a[3:] if p is not None) for a in agg)
+    ops = sum(32.0 * a[0].numel() for a in agg)
     return {"name": "sgm_aggregate", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/sgm_scan.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/sgm_scan.py:117",
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound(nbytes, ops), "library_ms": None}
 
 
 def local_ba_problem(cam_cfg, dev, F=4, L=2048, seed=0):
@@ -290,10 +361,160 @@ def compare_local_ba(cfg, dev) -> dict:
     say(f"local-BA blocks: F=4, L=2048 with the stereo row within rtol {BA_RTOL} / atol {BA_ATOL_REL} x max "
         f"(max abs err {err:.4g}), cost within rtol {BA_COST_RTOL}, two runs bit-equal; per build "
         f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
+    F, L = mask.shape
+    # poses, points, observations, mask, u_R and its mask, intrinsics in;
+    # Hcc, Hcp, Hpp, gc, gp, cost out; ~600 flops per (frame, landmark)
+    nbytes = 4 * (16 * F + 3 * L + 5 * F * L + 5) + 4 * (36 * F + 18 * F * L + 9 * L + 6 * F + 3 * L + 1)
     return {"name": "local_ba_blocks", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/ba_hessian.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/ba_hessian.py:270",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(nbytes, 600.0 * F * L),
+            "library_ms": None}
+
+
+def compare_fast(cfg, dev) -> dict:
+    """B4 at the 8 level shapes of a real frame, both thresholds; then
+    extract_orb with the kernel against the rolled ring."""
+    from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
+    from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_scores, fast_scores_plain
+    from stereo_semantic_vo_tpu_torch.ops.orb import extract_orb, pyramid
+
+    oc = cfg.orb
+    ths = (float(oc.fast_threshold), float(oc.fast_min_threshold))
+    levels = pyramid(torch.from_numpy(two_plane_frame_source(cfg.camera.height, cfg.camera.width)(3)[0]).to(dev), oc)
+    ms = plain_ms = nbytes = ops = 0.0
+    for img in levels:
+        got, want = fast_scores(img, ths), fast_scores_plain(img, ths)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            check(torch.equal(g, w), f"FAST scores differ at level shape {tuple(img.shape)}: "
+                  f"max abs {float((g - w).abs().max())}")
+        ms += median_ms(lambda: fast_scores(img, ths))
+        plain_ms += median_ms(lambda: fast_scores_plain(img, ths), reps=20, warmup=2)
+        # the image in, a score map per threshold out; 16 differences, then
+        # per threshold 32 subtractions, two 16-term sums and a max
+        nbytes += img.numel() * 4 * (1 + len(ths))
+        ops += img.numel() * (16 + 63 * len(ths))
+    a = extract_orb(levels[0], dataclasses.replace(oc, fast_backend="pallas"))
+    b = extract_orb(levels[0], dataclasses.replace(oc, fast_backend="xla"))
+    for name, x, y in zip(a._fields, a, b):
+        check(torch.equal(x, y), f"extract_orb with the FAST kernel differs from the rolled ring in {name}")
+    say(f"fast scores: bit-equal on all 8 level shapes (376x1241 ... 106x346) at thresholds {ths}; "
+        f"extract_orb keypoints equal to the rolled ring's ({int(a.valid.sum())} valid); per frame "
+        f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
+    return {"name": "fast_scores", "route": "cuda",
+            "source": "stereo_semantic_vo_tpu_torch/csrc/fast_score.cu",
+            "replaces": "stereo_semantic_vo_tpu/kernels/fast_score.py:93",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound(nbytes, ops), "library_ms": None}
+
+
+def motion_problem(cam_cfg, dev, K=512, seed=0, noise=0.4):
+    """tests/test_ba_hessian.py's problem: K points 5-60 m ahead seen from a
+    known pose with pixel noise, ~10% masked; -> (T0, X, uv, mask) with T0
+    a small perturbation of the true pose."""
+    from stereo_semantic_vo_tpu_torch.core import lie
+
+    rng = np.random.RandomState(seed)
+    X = np.stack([rng.uniform(-20, 20, K), rng.uniform(-5, 5, K), rng.uniform(5, 60, K)], -1).astype(np.float32)
+    T_true = lie.se3_exp(torch.tensor([0.3, -0.1, 0.5, 0.02, -0.03, 0.01])).numpy()
+    pc = X @ T_true[:3, :3].T + T_true[:3, 3]
+    uv = np.stack([cam_cfg.fx * pc[:, 0] / pc[:, 2] + cam_cfg.cx, cam_cfg.fy * pc[:, 1] / pc[:, 2] + cam_cfg.cy], -1)
+    uv = (uv + rng.normal(0, noise, uv.shape)).astype(np.float32)
+    mask = (pc[:, 2] > 0.5) & (rng.rand(K) > 0.1)
+    T0 = lie.se3_exp(torch.tensor([0.05, 0.0, -0.04, 0.004, 0.0, -0.003])).numpy() @ T_true
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (T0.astype(np.float32), X, uv, mask)]
+
+
+def compare_motion_hessian(cfg, dev) -> dict:
+    """B5 at K=512: within tests/test_ba_hessian.py's bounds, deterministic;
+    one call and one motion_only_ba (10 calls) timed."""
+    from stereo_semantic_vo_tpu_torch.core.camera import Camera
+    from stereo_semantic_vo_tpu_torch.kernels.ba_hessian import (
+        motion_hessian_gradient,
+        motion_hessian_gradient_plain,
+        motion_intrinsics,
+    )
+    from stereo_semantic_vo_tpu_torch.ops.ba import motion_only_ba
+
+    cam = Camera.from_config(cfg.camera, dev)
+    T0, X, uv, mask = motion_problem(cfg.camera, dev)
+    K = X.shape[0]
+    args = (T0, X.T.contiguous(), uv.T.contiguous(), mask.to(torch.float32)[None], motion_intrinsics(cam),
+            cfg.ba.huber_delta)
+    got = motion_hessian_gradient(*args)
+    again = motion_hessian_gradient(*args)
+    want = motion_hessian_gradient_plain(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(("H", "g"), got, want):
+        atol = MH_ATOL_REL * float(b.abs().max())
+        check(torch.allclose(a, b, rtol=MH_RTOL, atol=atol),
+              f"motion build {name} differs from the plain build (max abs {float((a - b).abs().max())})")
+        err = max(err, float((a - b).abs().max()))
+    check(torch.allclose(got[2], want[2], rtol=MH_COST_RTOL, atol=0.0),
+          f"motion build cost {float(got[2])} vs plain {float(want[2])}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), "motion build kernel is not deterministic")
+    ms = median_ms(lambda: motion_hessian_gradient(*args))
+    plain_ms = median_ms(lambda: motion_hessian_gradient_plain(*args))
+    lm = {}
+    for backend in ("pallas", "xla"):
+        bcfg = dataclasses.replace(cfg.ba, hessian_backend=backend, trim_px=10.0)
+        lm[backend] = median_ms(lambda: motion_only_ba(T0, X, uv, mask, cam, bcfg), reps=20, warmup=2)
+    say(f"motion build: K={K} within rtol {MH_RTOL} / atol {MH_ATOL_REL} x max (max abs err {err:.4g}), "
+        f"cost within rtol {MH_COST_RTOL}, two runs bit-equal; per build {ms:.4f} ms kernel, {plain_ms:.4f} ms "
+        f"plain; one motion_only_ba (10 LM steps, trim 10 px) {lm['pallas']:.3f} ms with the kernel, "
+        f"{lm['xla']:.3f} ms with the einsum build")
+    # pose, points, observations, mask, intrinsics in; H, g, cost out;
+    # ~230 flops an observation
+    nbytes = 4 * (16 + 6 * K + 4) + 4 * 43
+    return {"name": "motion_hessian_gradient", "route": "cuda",
+            "source": "stereo_semantic_vo_tpu_torch/csrc/ba_hessian.cu",
+            "replaces": "stereo_semantic_vo_tpu/kernels/ba_hessian.py:115",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(nbytes, 230.0 * K), "library_ms": None,
+            "motion_only_ba_ms": lm}
+
+
+def compare_hamming_matrix(cfg, dev, rng, popc_rate: float) -> dict:
+    """B8 at Q=2048 and Q=512 against T=512, against its plain version and
+    against ``torch.cdist(p=0)`` on the descriptors unpacked to 0/1 bits."""
+    from stereo_semantic_vo_tpu_torch.kernels.hamming import (
+        DESC_BITS,
+        hamming_distance_matrix,
+        hamming_distance_matrix_pallas,
+    )
+
+    T = cfg.orb.max_keypoints
+    shifts = torch.arange(32, device=dev)
+
+    def bits(d):
+        return ((d[:, :, None] >> shifts) & 1).reshape(d.shape[0], DESC_BITS).to(torch.float32)
+
+    ms = plain_ms = lib_ms = bound_ms = 0.0
+    for Q in (cfg.window.max_map_points, cfg.orb.max_keypoints):
+        q = rng.randint(0, 2**32, (Q, 8), dtype=np.uint64).astype(np.uint32)
+        t = rng.randint(0, 2**32, (T, 8), dtype=np.uint64).astype(np.uint32)
+        q[:16] = t[100:116]  # distance 0
+        qd, td = (torch.from_numpy(a.view(np.int32)).to(dev) for a in (q, t))
+        got = hamming_distance_matrix_pallas(qd, td)
+        want = hamming_distance_matrix(qd, td)
+        qb, tb = bits(qd), bits(td)
+        lib = torch.cdist(qb, tb, p=0)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"Hamming matrix differs from its plain version at Q={Q}, T={T}")
+        check(torch.equal(lib.to(torch.int32), want), f"torch.cdist(p=0) differs from the Hamming matrix at Q={Q}")
+        ms += median_ms(lambda: hamming_distance_matrix_pallas(qd, td))
+        plain_ms += median_ms(lambda: hamming_distance_matrix(qd, td))
+        lib_ms += median_ms(lambda: torch.cdist(qb, tb, p=0))
+        b = bound((Q + T) * 32 + Q * T * 4, Q * T * 8, popc_rate)  # words in, the matrix out
+        bound_ms += b["bound_ms"]
+    say(f"hamming matrix: equal to the plain version and to torch.cdist(p=0) at Q=2048 and Q=512 against "
+        f"T={T}; both calls {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms cdist")
+    return {"name": "hamming_distance_matrix_pallas", "route": "cuda",
+            "source": "stereo_semantic_vo_tpu_torch/csrc/hamming.cu",
+            "replaces": "stereo_semantic_vo_tpu/kernels/hamming.py:73",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": b["bound_by"], "library_ms": lib_ms,
+            "note": "no path of either package calls it; its shapes are the matcher's"}
 
 
 def frames(cfg, n: int):
@@ -381,11 +602,13 @@ def cpu_rerun(label: str, cfg, n_frames: int, gpu_poses: np.ndarray, local_ba_ev
         f"({cpu_wall / n_frames * 1000:.1f} ms/frame on the host CPU)")
 
 
-def steady_state(label: str, pipe, n_frames: int, wall: float, card: str) -> None:
+def steady_state(label: str, pipe, n_frames: int, wall: float, card: str) -> tuple[float, float]:
+    """-> the median and p90 ms/frame over frames 5 on, printed with the card."""
     steady = np.array(pipe.frame_times[5:]) * 1000.0
-    say(f"{label} steady state: median {np.median(steady):.3f} ms/frame, p90 "
-        f"{np.percentile(steady, 90):.3f} ms (frames 5-{n_frames - 1}, host clock, one-frame-deferred "
-        f"readback); whole run {wall:.2f} s incl. first-frame warm-up; card {card}")
+    med, p90 = float(np.median(steady)), float(np.percentile(steady, 90))
+    say(f"{label} steady state: median {med:.3f} ms/frame, p90 {p90:.3f} ms (frames 5-{n_frames - 1}, host "
+        f"clock, one-frame-deferred readback); whole run {wall:.2f} s incl. first-frame warm-up; card {card}")
+    return med, p90
 
 
 def main() -> None:
@@ -395,7 +618,9 @@ def main() -> None:
     from stereo_semantic_vo_tpu_torch.engine.tracker import FrameInput, track_step
     from stereo_semantic_vo_tpu_torch.engine.window_ba import refine_state
     from stereo_semantic_vo_tpu_torch.kernels import build
-    from stereo_semantic_vo_tpu_torch.kernels.ba_hessian import local_ba_blocks
+    from stereo_semantic_vo_tpu_torch.kernels.ba_hessian import local_ba_blocks, motion_hessian_gradient
+    from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_scores
+    from stereo_semantic_vo_tpu_torch.kernels.hamming import hamming_distance_matrix_pallas
     from stereo_semantic_vo_tpu_torch.kernels.matcher import fused_best_match
     from stereo_semantic_vo_tpu_torch.kernels.patch_extract import extract_patches
     from stereo_semantic_vo_tpu_torch.kernels.sgm_scan import sgm_aggregate
@@ -407,6 +632,8 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     cfg = VOConfig.kitti("00")
     dense_cfg = dataclasses.replace(cfg, stereo=dataclasses.replace(cfg.stereo, sparse_mode="dense"))
+    knob_cfg = dataclasses.replace(cfg, orb=dataclasses.replace(cfg.orb, fast_backend="pallas"),
+                                   ba=dataclasses.replace(cfg.ba, hessian_backend="pallas"))
 
     # 1. build
     t0 = time.perf_counter()
@@ -418,30 +645,37 @@ def main() -> None:
 
     # 2. each kernel against its plain version on the card
     rng = np.random.RandomState(0)
-    entries = [compare_patches(cfg, dev, rng), compare_stereo(cfg, dev, rng), compare_matcher(cfg, dev, rng),
-               compare_sgm(dense_cfg, dev), compare_local_ba(cfg, dev)]
+    popc_rate = popc_per_s()
+    say(f"peak rates: {HBM_BYTES_PER_S / 1e12} TB/s, {FP32_FLOP_PER_S / 1e12} TFLOP/s float32, "
+        f"{popc_rate / 1e12:.4f} T popcounts/s ({POPC_PER_CLOCK_PER_SM} a clock per SM at the top SM clock)")
+    entries = [compare_patches(cfg, dev, rng), compare_stereo(cfg, dev, rng),
+               compare_matcher(cfg, dev, rng, popc_rate), compare_fast(cfg, dev), compare_motion_hessian(cfg, dev),
+               compare_sgm(dense_cfg, dev), compare_local_ba(cfg, dev),
+               compare_hamming_matrix(cfg, dev, rng, popc_rate)]
 
     kernels = {"extract_patches": extract_patches, "keypoint_stereo_costs": keypoint_stereo_costs,
-               "fused_best_match": fused_best_match, "sgm_aggregate": sgm_aggregate,
-               "local_ba_blocks": local_ba_blocks}
+               "fused_best_match": fused_best_match, "fast_scores": fast_scores,
+               "motion_hessian_gradient": motion_hessian_gradient, "sgm_aggregate": sgm_aggregate,
+               "local_ba_blocks": local_ba_blocks, "hamming_distance_matrix_pallas": hamming_distance_matrix_pallas}
+    off = {"fast_scores": 0, "motion_hessian_gradient": 0, "hamming_distance_matrix_pallas": 0}
     by_path = {}
 
     # 3-5. the first path: sparse stereo, no window BA
     n_f = N_FRAMES
     expected = {"extract_patches": cfg.orb.n_levels * n_f, "keypoint_stereo_costs": n_f,
-                "fused_best_match": 2 * (n_f - 1), "sgm_aggregate": 0, "local_ba_blocks": 0}
-    pipe, wall, poses, by_path["sparse"] = drive_path("slice", cfg, dev, n_f, 0, kernels, expected)
+                "fused_best_match": 2 * (n_f - 1), "sgm_aggregate": 0, "local_ba_blocks": 0, **off}
+    pipe, wall, slice_poses, by_path["sparse"] = drive_path("slice", cfg, dev, n_f, 0, kernels, expected)
     last = list(frames(cfg, n_f + 1))[-1]
     frame = FrameInput(*(torch.from_numpy(a).to(dev) for a in last[1:5]))
     no_sync("one track_step", lambda: track_step(pipe.state, frame, cfg))
-    cpu_rerun("slice", cfg, N_CPU_FRAMES, poses)
-    steady_state("slice", pipe, n_f, wall, card)
+    cpu_rerun("slice", cfg, N_CPU_FRAMES, slice_poses)
+    slice_steady = steady_state("slice", pipe, n_f, wall, card)
 
     # 6. the second path: dense stereo sampled at the keypoints, window BA every frame
     n_d, win = N_DENSE_FRAMES, cfg.window.window_frames
     expected = {"extract_patches": cfg.orb.n_levels * n_d, "keypoint_stereo_costs": 0,
                 "fused_best_match": 2 * (n_d - 1), "sgm_aggregate": 12 * n_d,
-                "local_ba_blocks": cfg.ba.local_iterations * (n_d - (win - 1))}
+                "local_ba_blocks": cfg.ba.local_iterations * (n_d - (win - 1)), **off}
     pipe, wall, poses, by_path["dense_window_ba"] = drive_path(
         "dense + window BA", dense_cfg, dev, n_d, 1, kernels, expected)
     last = list(frames(dense_cfg, n_d + 1))[-1]
@@ -450,6 +684,28 @@ def main() -> None:
     no_sync("one refine_state", lambda: refine_state(pipe.state, dense_cfg))
     cpu_rerun("dense + window BA", dense_cfg, N_DENSE_CPU_FRAMES, poses, local_ba_every=1)
     steady_state("dense + window BA", pipe, n_d, wall, card)
+
+    # 7. the third path: the first path with the FAST kernel at every level
+    # and the fused motion-BA build at every LM step of the tracker's BA
+    n_k = N_KNOB_FRAMES
+    expected = {"extract_patches": cfg.orb.n_levels * n_k, "keypoint_stereo_costs": n_k,
+                "fused_best_match": 2 * (n_k - 1), "sgm_aggregate": 0, "local_ba_blocks": 0,
+                "fast_scores": cfg.orb.n_levels * n_k, "motion_hessian_gradient": cfg.ba.iterations * (n_k - 1),
+                "hamming_distance_matrix_pallas": 0}
+    pipe, wall, poses, by_path["knobs"] = drive_path("knob path", knob_cfg, dev, n_k, 0, kernels, expected)
+    n_both = min(n_k, N_FRAMES)
+    dpos = np.abs(poses[:n_both, :3, 3] - slice_poses[:n_both, :3, 3]).max()
+    drot = max(rotation_angle(a[:3, :3].T @ b[:3, :3]) for a, b in zip(poses[:n_both], slice_poses))
+    check(dpos <= PATH_POS_TOL_M and drot <= PATH_ROT_TOL_RAD,
+          f"knob path vs first path: poses differ by {dpos} m / {drot} rad")
+    say(f"knob path vs first path: {n_both} frames, max pose difference {dpos:.2e} m, {drot:.2e} rad")
+    last = list(frames(knob_cfg, n_k + 1))[-1]
+    frame = FrameInput(*(torch.from_numpy(a).to(dev) for a in last[1:5]))
+    no_sync("one knob-path track_step", lambda: track_step(pipe.state, frame, knob_cfg))
+    cpu_rerun("knob path", knob_cfg, N_KNOB_CPU_FRAMES, poses)
+    knob_steady = steady_state("knob path", pipe, n_k, wall, card)
+    say("knob path beside the first path in this call: median / p90 {:.3f} / {:.3f} against {:.3f} / {:.3f} "
+        "ms/frame".format(*knob_steady, *slice_steady))
 
     for e in entries:
         e["launches"] = sum(counts[e["name"]] for counts in by_path.values())

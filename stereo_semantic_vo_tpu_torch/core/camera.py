@@ -23,7 +23,7 @@ class Camera(NamedTuple):
 
     @classmethod
     def from_config(
-        cls, cfg: CameraConfig, device: torch.device | str = "cpu", dtype=torch.float32
+        cls, cfg: CameraConfig, device: torch.device | str = "cuda", dtype=torch.float32
     ) -> "Camera":
         # torch.full is a device fill, not a host->device copy
         def c(v):

@@ -73,7 +73,7 @@ class ORBConfig:
     brief_seed: int = 0x0B5E55ED
     smooth_width: int = 9
     steer: bool = True                # False = upright BRIEF (the only form ported)
-    fast_backend: str = "xla"         # "xla" (rolled ring) | "pallas" (not ported)
+    fast_backend: str = "xla"         # "xla" (rolled ring) | "pallas" (CUDA kernel); "auto" = "xla"
     patch_backend: str = "xla"        # "xla" (plain gather) | "pallas" (CUDA kernel)
 
 
@@ -148,7 +148,7 @@ class BAConfig:
     local_iterations: int = 5
     max_landmarks: int = 2048
     stereo_pose: bool = False
-    hessian_backend: str = "xla"        # "xla" | "pallas" (not ported)
+    hessian_backend: str = "xla"        # "xla" (einsum) | "pallas" (CUDA kernel); "auto" = "xla"
     local_hessian_backend: str = "xla"
 
 

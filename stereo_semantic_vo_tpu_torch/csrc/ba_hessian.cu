@@ -1,4 +1,30 @@
-// Local bundle-adjustment normal-equation block build.
+// Bundle-adjustment normal-equation builds: the motion-only build (B5) and
+// the local-BA block build (B7).
+//
+// --- Motion-only build -----------------------------------------------------
+//
+// Replaces: stereo_semantic_vo_tpu/kernels/ba_hessian.py:motion_hessian_gradient
+// (Pallas, TPU).  Same contract: pose T_cw (4, 4), world points Xt (3, K),
+// observations uvt (2, K) and mask (1, K) (float {0, 1}) give the 6x6
+// Gauss-Newton Hessian H, the gradient g (6) and the Huber cost of mono
+// motion-only BA for the left update T <- exp(xi) T, with the analytic 2x6
+// Jacobian and IRLS weight mask * (z > 0.05) * huber(r).  The intrinsics
+// [fx, fy, cx, cy] come as a (4,) device buffer, stacked once per
+// motion_only_ba call, so the LM loop reads nothing back.
+//
+// Design: one block of 256 threads strides over the K observations; each
+// thread keeps its 28 partial sums (21 upper-triangle H, 6 g, 1 cost) in
+// registers, then the block reduces them in a fixed order (warp shuffles,
+// then the warps in order).  No atomics, so two runs agree bit for bit.  H,
+// g and cost land in one 43-float buffer that the wrapper returns views of.
+//
+// Bound on the H100: launch latency.  At K = 512 the build reads 12 KB and
+// does ~120 kFLOP, a few nanoseconds of HBM or ALU time; one block on one SM
+// is enough.  The TPU kernel's point, that the (K, 2, 6) Jacobian never
+// reaches memory, holds here too: the einsum build it replaces is dozens of
+// launches per LM step, this one is one.
+//
+// --- Local-BA block build --------------------------------------------------
 //
 // Replaces: stereo_semantic_vo_tpu/kernels/ba_hessian.py:local_ba_blocks
 // (Pallas, TPU).  Same contract as ops/local_ba.build_normal_equations: F
@@ -36,6 +62,85 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
+}
+
+constexpr int kMotionThreads = 256;
+constexpr int kMotionWarps = kMotionThreads / 32;
+
+// (a, b), a <= b, of the k-th upper-triangle entry of a 6x6 matrix, row-major
+__device__ __forceinline__ void upper_entry(int k, int& a, int& b) {
+  a = 0;
+  while (k >= 6 - a) {
+    k -= 6 - a;
+    ++a;
+  }
+  b = a + k;
+}
+
+__global__ void motion_hessian_kernel(const float* __restrict__ T, const float* __restrict__ Xt,
+                                      const float* __restrict__ uvt, const float* __restrict__ mask,
+                                      const float* __restrict__ intr, int K, float delta,
+                                      float* __restrict__ out) {
+  __shared__ float red[kMotionWarps][kPoseEntries];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float R[3][3], t[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int b = 0; b < 3; ++b) R[a][b] = T[4 * a + b];
+    t[a] = T[4 * a + 3];
+  }
+  const float fx = intr[0], fy = intr[1], cx = intr[2], cy = intr[3];
+  float e[kPoseEntries] = {};
+  for (int k = threadIdx.x; k < K; k += kMotionThreads) {
+    const float xw = Xt[k], yw = Xt[K + k], zw = Xt[2 * K + k];
+    const float px = R[0][0] * xw + R[0][1] * yw + R[0][2] * zw + t[0];
+    const float py = R[1][0] * xw + R[1][1] * yw + R[1][2] * zw + t[1];
+    const float pz = R[2][0] * xw + R[2][1] * yw + R[2][2] * zw + t[2];
+    const float zs = fabsf(pz) > 1e-6f ? pz : 1e-6f;
+    const float iz = 1.0f / zs;
+    const float iz2 = iz * iz;
+    const float ru = fx * px * iz + cx - uvt[k];
+    const float rv = fy * py * iz + cy - uvt[K + k];
+    const float mpos = pz > 0.05f ? mask[k] : 0.f;
+    // Huber IRLS weight and robust cost (ops/ba.huber_weights)
+    const float r2 = ru * ru + rv * rv;
+    const float r = sqrtf(fmaxf(r2, 1e-12f));
+    const float w = mpos * (r <= delta ? 1.0f : delta / r);
+    const float Ju[6] = {fx * iz, 0.f, -fx * px * iz2, -fx * px * py * iz2,
+                         fx * (1.0f + px * px * iz2), -fx * py * iz};
+    const float Jv[6] = {0.f, fy * iz, -fy * py * iz2, -fy * (1.0f + py * py * iz2),
+                         fy * px * py * iz2, fy * px * iz};
+    int q = 0;
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+#pragma unroll
+      for (int b = a; b < 6; ++b) e[q++] += w * (Ju[a] * Ju[b] + Jv[a] * Jv[b]);
+    }
+#pragma unroll
+    for (int a = 0; a < 6; ++a) e[21 + a] += w * (Ju[a] * ru + Jv[a] * rv);
+    e[27] += mpos * (r2 <= delta * delta ? r2 : 2.0f * delta * r - delta * delta);
+  }
+#pragma unroll
+  for (int q = 0; q < kPoseEntries; ++q) {
+    const float s = warp_sum(e[q]);
+    if (lane == 0) red[warp][q] = s;
+  }
+  __syncthreads();
+  const int q = threadIdx.x;
+  if (q < kPoseEntries) {
+    float s = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kMotionWarps; ++wi) s += red[wi][q];
+    if (q < 21) {
+      int a, b;
+      upper_entry(q, a, b);
+      out[6 * a + b] = s;
+      out[6 * b + a] = s;
+    } else {
+      out[36 + (q - 21)] = s;  // g, then the cost at out[42]
+    }
+  }
 }
 
 __global__ void local_ba_blocks_kernel(const float* __restrict__ poses,
@@ -176,12 +281,8 @@ __global__ void local_ba_finalize_kernel(const float* __restrict__ partial, int 
     float s = 0.f;
     for (int b = 0; b < n_blocks; ++b) s += partial[(static_cast<size_t>(b) * F + f) * kPoseEntries + k];
     if (k < 21) {
-      int a = 0, rem = k;
-      while (rem >= 6 - a) {
-        rem -= 6 - a;
-        ++a;
-      }
-      const int b = a + rem;
+      int a, b;
+      upper_entry(k, a, b);
       Hcc[36 * f + 6 * a + b] = s;
       Hcc[36 * f + 6 * b + a] = s;
     } else if (k < 27) {
@@ -215,5 +316,13 @@ extern "C" int ssvo_local_ba_blocks(const float* poses, const float* X, const fl
   }
   local_ba_finalize_kernel<<<1, F * kPoseEntries, F * sizeof(float), stream>>>(
       partial, n_blocks, F, Hcc, gc, cost);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ssvo_motion_hessian_gradient(const float* T, const float* Xt, const float* uvt,
+                                            const float* mask, const float* intr, int K,
+                                            float delta, float* out, cudaStream_t stream) {
+  if (K < 0) return static_cast<int>(cudaErrorInvalidValue);
+  motion_hessian_kernel<<<1, kMotionThreads, 0, stream>>>(T, Xt, uvt, mask, intr, K, delta, out);
   return static_cast<int>(cudaGetLastError());
 }

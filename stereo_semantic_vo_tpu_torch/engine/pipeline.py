@@ -54,7 +54,7 @@ class VOPipeline:
     def __init__(
         self,
         cfg: VOConfig,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         detector: Any | None = None,
         out_dir: str | None = None,
         write_trajectory: bool = True,

@@ -50,7 +50,7 @@ class VOState(NamedTuple):
         return lie.T_inv(self.T_cw)
 
 
-def init_state(cfg: VOConfig, device: torch.device | str = "cpu") -> VOState:
+def init_state(cfg: VOConfig, device: torch.device | str = "cuda") -> VOState:
     K = cfg.orb.max_keypoints
     Wf = cfg.window.window_frames
     M = Wf * K

@@ -292,7 +292,7 @@ def track_step(state: VOState, frame: FrameInput, cfg: VOConfig) -> tuple[VOStat
     )
 
 
-def make_tracker(cfg: VOConfig, device: torch.device | str = "cpu"):
+def make_tracker(cfg: VOConfig, device: torch.device | str = "cuda"):
     """Returns (state0, step) where step(state, frame) dispatches init/track."""
     state0 = init_state(cfg, device)
 

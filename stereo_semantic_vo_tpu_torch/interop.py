@@ -40,7 +40,7 @@ def config_from_jax(cfg: Any) -> C.VOConfig:
     )
 
 
-def state_from_numpy(arrays: Mapping[str, Any], device: torch.device | str = "cpu") -> VOState:
+def state_from_numpy(arrays: Mapping[str, Any], device: torch.device | str = "cuda") -> VOState:
     """The JAX VOState's fields as numpy arrays (``{k: np.asarray(v)}``) ->
     VOState on ``device``.  uint32 descriptors become int32 bit patterns; the
     ``*_pm1`` fields are dropped."""

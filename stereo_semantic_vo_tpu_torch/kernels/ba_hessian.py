@@ -1,17 +1,24 @@
-"""Local bundle-adjustment normal equations: the F poses x L landmarks
-block build.
+"""Bundle-adjustment normal-equation builds: the motion-only build and the
+F poses x L landmarks local-BA block build.
 
-Port of ``stereo_semantic_vo_tpu.kernels.ba_hessian.local_ba_blocks`` with
-``ops/local_ba.build_normal_equations``' contract; the kernel is
-``csrc/ba_hessian.cu``.  The plain version is the reference's einsum build
-over the materialised (F, L, C, 6) / (F, L, C, 3) Jacobians.  The two sum
-in different orders, so they agree to float tolerance (rtol 3e-5, atol
-1e-4 x max|plain|, cost rtol 1e-5), the tolerance of the reference's own
-kernel test.
+Ports of ``stereo_semantic_vo_tpu.kernels.ba_hessian``; both kernels are in
+``csrc/ba_hessian.cu``.
 
-The motion-only build of the same Pallas module
-(``motion_hessian_gradient``, ``BAConfig.hessian_backend="pallas"``) is not
-ported (ROADMAP B5).
+* ``motion_hessian_gradient`` (``BAConfig.hessian_backend="pallas"``): the
+  6x6 Hessian, gradient and Huber cost of mono motion-only BA, in the
+  reference's transposed layout (Xt (3, K), uvt (2, K), maskf (1, K)),
+  with the intrinsics as one (4,) tensor (``motion_intrinsics``).
+  The plain version builds the 21 unique H entries, the 6 g entries and
+  the cost from the per-observation terms as the Pallas body does.
+* ``local_ba_blocks``, with ``ops/local_ba.build_normal_equations``'
+  contract.  The plain version is the reference's einsum build over the
+  materialised (F, L, C, 6) / (F, L, C, 3) Jacobians.
+
+Kernel and plain version sum in different orders, so they agree to float
+tolerance, the reference's own kernel test's (tests/test_ba_hessian.py):
+the motion build within rtol 2e-5 and atol 1e-6 x max|plain|, the local
+blocks within rtol 3e-5 and atol 1e-4 x max|plain|, the cost within rtol
+1e-5 for both.
 """
 
 from __future__ import annotations
@@ -88,6 +95,73 @@ def residual_and_jacobians(poses, points, obs_uv, obs_mask, cam, huber_delta, ob
     Jc = torch.einsum("flij,fljk->flik", duv_dpc, dpc_dxi)
     Jp = torch.einsum("flij,fjk->flik", duv_dpc, R)
     return r, w, Jc, Jp, cost
+
+
+def motion_intrinsics(cam) -> torch.Tensor:
+    """[fx, fy, cx, cy] as one (4,) float32 tensor on the camera's device:
+    a device stack, no readback.  Made once per ``motion_only_ba`` call."""
+    return torch.stack([cam.fx, cam.fy, cam.cx, cam.cy]).to(torch.float32)
+
+
+def motion_hessian_gradient_plain(T_cw, Xt, uvt, maskf, intr, delta):
+    """-> (H (6,6), g (6,), cost ()) of the Pallas body's arithmetic."""
+    fx, fy, cx, cy = intr.unbind()
+    R, t = T_cw[:3, :3], T_cw[:3, 3]
+    xw, yw, zw = Xt[0], Xt[1], Xt[2]
+    px = R[0, 0] * xw + R[0, 1] * yw + R[0, 2] * zw + t[0]
+    py = R[1, 0] * xw + R[1, 1] * yw + R[1, 2] * zw + t[1]
+    pz = R[2, 0] * xw + R[2, 1] * yw + R[2, 2] * zw + t[2]
+    iz = 1.0 / torch.where(torch.abs(pz) > 1e-6, pz, 1e-6)
+    iz2 = iz * iz
+    ru = fx * px * iz + cx - uvt[0]
+    rv = fy * py * iz + cy - uvt[1]
+    mask_pos = maskf[0] * (pz > 0.05)
+    r2 = ru * ru + rv * rv
+    r = torch.sqrt(torch.clamp_min(r2, 1e-12))
+    w = mask_pos * torch.where(r <= delta, 1.0, delta / r)
+    rho = mask_pos * torch.where(r2 <= delta * delta, r2, 2.0 * delta * r - delta * delta)
+    zero = torch.zeros_like(pz)
+    Ju = torch.stack([fx * iz, zero, -fx * px * iz2, -fx * px * py * iz2, fx * (1.0 + px * px * iz2), -fx * py * iz])
+    Jv = torch.stack([zero, fy * iz, -fy * py * iz2, -fy * (1.0 + py * py * iz2), fy * px * py * iz2, fy * px * iz])
+    a, b = torch.triu_indices(6, 6, device=T_cw.device)  # the 21 unique entries, row-major
+    h = torch.sum(w * (Ju[a] * Ju[b] + Jv[a] * Jv[b]), dim=-1)
+    H = torch.zeros((6, 6), dtype=torch.float32, device=T_cw.device)
+    H = H.index_put((a, b), h).index_put((b, a), h)
+    g = torch.sum(w * (Ju * ru + Jv * rv), dim=-1)
+    return H, g, torch.sum(rho)
+
+
+def motion_hessian_gradient(T_cw, Xt, uvt, maskf, intr, delta):
+    """The fused H / g / cost build of :func:`motion_hessian_gradient_plain`.
+    T_cw (4,4), Xt (3,K), uvt (2,K), maskf (1,K) float32 {0, 1}; ``intr`` is
+    ``motion_intrinsics(cam)``, which an LM loop stacks once, so that each
+    step is one allocation and one launch.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    The kernel's H, g and cost are views of one 43-float buffer."""
+    if T_cw.device.type == "cpu":
+        return motion_hessian_gradient_plain(T_cw, Xt, uvt, maskf, intr, delta)
+    f32 = torch.float32
+    K = Xt.shape[-1]
+    build.check_cuda(T_cw, "T_cw", f32, (4, 4))
+    build.check_cuda(Xt, "Xt", f32, (3, K))
+    build.check_cuda(uvt, "uvt", f32, (2, K))
+    build.check_cuda(maskf, "maskf", f32, (1, K))
+    build.check_cuda(intr, "intr", f32, (4,))
+    if len({x.device for x in (T_cw, Xt, uvt, maskf, intr)}) != 1:
+        raise ValueError("all tensors must be on one device")
+    lib = build.library()
+    out = torch.empty(43, dtype=f32, device=T_cw.device)
+    with torch.cuda.device(T_cw.device):
+        lib.call(
+            "ssvo_motion_hessian_gradient", T_cw.data_ptr(), Xt.data_ptr(), uvt.data_ptr(),
+            maskf.data_ptr(), intr.data_ptr(), K, float(delta), out.data_ptr(), build.stream_handle(T_cw),
+        )
+    motion_hessian_gradient.launches += 1
+    return out[:36].view(6, 6), out[36:42], out[42]
+
+
+motion_hessian_gradient.launches = 0
 
 
 def local_ba_blocks_plain(poses, points, obs_uv, obs_mask, cam, huber_delta, obs_ur=None, obs_r_mask=None):

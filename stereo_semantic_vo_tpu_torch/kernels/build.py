@@ -41,6 +41,9 @@ SIGNATURES = {
     "ssvo_fused_best_match": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "ssvo_sgm_directional": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     "ssvo_local_ba_blocks": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],
+    "ssvo_fast_scores": [_P, _I, _I, _I, _F, _F, _P, _P],
+    "ssvo_motion_hessian_gradient": [_P, _P, _P, _P, _P, _I, _F, _P, _P],
+    "ssvo_hamming_distance_matrix": [_P, _P, _I, _I, _P, _P],
 }
 
 

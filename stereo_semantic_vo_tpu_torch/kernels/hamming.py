@@ -1,21 +1,26 @@
 """Bulk 256-bit Hamming distances and the masked best/second-best reduction.
 
-Port of the plain parts of ``stereo_semantic_vo_tpu.kernels.hamming``.
-Descriptors are (N, 8) int32 tensors holding the bit patterns of the JAX
-package's uint32 words (PyTorch has little uint32 support); only bits
-matter here, so the sign of a word is irrelevant.
+Port of ``stereo_semantic_vo_tpu.kernels.hamming``.  Descriptors are (N, 8)
+int32 tensors holding the bit patterns of the JAX package's uint32 words
+(PyTorch has little uint32 support); only bits matter here, so the sign of
+a word is irrelevant.
+
+``hamming_distance_matrix_pallas`` is the full (Q, T) distance-matrix
+kernel, ``csrc/hamming.cu``, with ``hamming_distance_matrix`` its plain
+version; the two are equal.  No tracking path calls it (the matcher fuses
+the reduction, ``kernels/matcher.py``), as in the reference, where only its
+tests and kernel benchmark do.
 
 Dropped: ``unpack_descriptors_pm1`` and ``hamming_distance_matrix_mxu``
 (the +-1 int8 matmul form exists for the TPU's matrix unit), together with
-the state's ``last_desc_pm1`` / ``map_desc_pm1`` that fed it.  The fused
-matcher (``kernels/matcher.py``) is the device path, and the popcount form
-below its plain version.  ``hamming_distance_matrix_pallas`` (the full
-distance-matrix kernel) is still to be ported (ROADMAP B8).
+the state's ``last_desc_pm1`` / ``map_desc_pm1`` that fed it.
 """
 
 from __future__ import annotations
 
 import torch
+
+from stereo_semantic_vo_tpu_torch.kernels import build
 
 DESC_WORDS = 8  # 256 bits as 8 x 32-bit words
 DESC_BITS = 256
@@ -39,6 +44,29 @@ def hamming_distance_matrix(query: torch.Tensor, train: torch.Tensor) -> torch.T
     for w in range(query.shape[1]):
         d += popcount32(torch.bitwise_xor(query[:, w, None], train[None, :, w]))
     return d
+
+
+def hamming_distance_matrix_pallas(query: torch.Tensor, train: torch.Tensor) -> torch.Tensor:
+    """(Q, 8) x (T, 8) int32 -> (Q, T) int32 Hamming distances.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if query.device.type == "cpu":
+        return hamming_distance_matrix(query, train)
+    Q, T = query.shape[0], train.shape[0]
+    build.check_cuda(query, "query", torch.int32, (Q, DESC_WORDS))
+    build.check_cuda(train, "train", torch.int32, (T, DESC_WORDS))
+    if query.device != train.device:
+        raise ValueError("all tensors must be on one device")
+    lib = build.library()
+    out = torch.empty((Q, T), dtype=torch.int32, device=query.device)
+    with torch.cuda.device(query.device):
+        lib.call("ssvo_hamming_distance_matrix", query.data_ptr(), train.data_ptr(), Q, T, out.data_ptr(),
+                 build.stream_handle(query))
+    hamming_distance_matrix_pallas.launches += 1
+    return out
+
+
+hamming_distance_matrix_pallas.launches = 0
 
 
 def masked_best_match(

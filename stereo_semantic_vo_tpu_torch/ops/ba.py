@@ -4,9 +4,10 @@ Port of ``stereo_semantic_vo_tpu.ops.ba``: masked reprojection residuals,
 Huber IRLS weights, the analytic 2x6 pose Jacobian, an optional stereo
 u_R row, and a fixed number of LM steps whose accept/reject decisions are
 ``torch.where`` selections (no host readback).  The normal equations are
-built in the reference's XLA form (einsum over the (K, 2, 6) Jacobian); the
-fused build (``BAConfig.hessian_backend="pallas"``) is not ported yet
-(ROADMAP B5).
+built in the reference's XLA form (einsum over the (K, 2, 6) Jacobian), or,
+with ``BAConfig.hessian_backend="pallas"``, Huber weights and no stereo row,
+by the fused build ``kernels/ba_hessian.motion_hessian_gradient``, as the
+reference chooses.
 """
 
 from __future__ import annotations
@@ -88,12 +89,11 @@ def motion_only_ba(
     With ``cfg.trim_px > 0`` observations farther than trim_px from the seed
     pose's projection are left out of the optimization (classified once)."""
     stereo = ur is not None
-    if (
+    fused = (
         resolve_backend(cfg.hessian_backend, X_w.device, "xla", "xla") == "pallas"
         and use_huber
-        and not stereo
-    ):
-        raise NotImplementedError("the fused motion-BA kernel is not ported yet (ROADMAP B5)")
+        and not stereo  # the fused build is mono-only
+    )
     chi2_th = cfg.huber_delta**2
     m = mask.to(torch.float32)
     if use_huber and cfg.trim_px > 0.0:
@@ -102,6 +102,13 @@ def motion_only_ba(
         m = m * close0 * (z0 > 0.05)
     if stereo:
         urm = ur_mask.to(torch.float32) if ur_mask is not None else torch.ones_like(ur)
+    if fused:
+        # imported here: kernels/ba_hessian imports this module.  The
+        # transposed operands and the intrinsics are made once per call;
+        # the trim classification is already folded into m.
+        from stereo_semantic_vo_tpu_torch.kernels.ba_hessian import motion_hessian_gradient, motion_intrinsics
+
+        Xt, uvt, intr, maskf = X_w.T.contiguous(), uv.T.contiguous(), motion_intrinsics(cam), m[None]
 
     def stereo_residual(T):
         pc = lie.transform_points(T, X_w)
@@ -130,12 +137,17 @@ def motion_only_ba(
     cost = robust_cost(T)[0]
     n_accept = torch.zeros((), dtype=torch.int64, device=X_w.device)
     for _ in range(cfg.iterations):
-        _, r, w_geom, r2 = robust_cost(T)
-        w = w_geom * huber_weights(r2, cfg.huber_delta) if use_huber else w_geom
-        J = _pose_jacobian(T, X_w, cam)                  # (K, 2, 6)
-        Jw = J * w[:, None, None]
-        H = torch.einsum("kif,kig->fg", Jw, J)
-        g = torch.einsum("kif,ki->f", Jw, r)
+        if fused:
+            # the kernel's cost goes unused, as in the reference: the accept
+            # test below compares robust_cost values
+            H, g, _ = motion_hessian_gradient(T.contiguous(), Xt, uvt, maskf, intr, cfg.huber_delta)
+        else:
+            _, r, w_geom, r2 = robust_cost(T)
+            w = w_geom * huber_weights(r2, cfg.huber_delta) if use_huber else w_geom
+            J = _pose_jacobian(T, X_w, cam)                  # (K, 2, 6)
+            Jw = J * w[:, None, None]
+            H = torch.einsum("kif,kig->fg", Jw, J)
+            g = torch.einsum("kif,ki->f", Jw, r)
         if stereo:
             # d(u_R)/dxi = d(u)/dxi + bf/z^2 * dz/dxi, dz/dxi = [0,0,1,y,-x,0]
             pc = lie.transform_points(T, X_w)

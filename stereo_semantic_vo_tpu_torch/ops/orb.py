@@ -7,8 +7,9 @@ the reference:
 
 * top-k selection uses a stable descending sort, so ties go to the lower
   index as in ``lax.top_k`` (grid cells are full of zero-score ties);
-* FAST sums, the box blur and the window reductions accumulate in the
-  reference's sequential order;
+* FAST sums (``kernels/fast_score.py``, which also holds the FAST kernel
+  that ``fast_backend="pallas"`` selects), the box blur and the window
+  reductions accumulate in the reference's sequential order;
 * the pyramid is resized with the separable weight matrices that
   ``jax.image.resize(..., "linear")`` builds (triangle kernel, antialiased
   when it downsamples), applied as ``Ry @ img @ Rx``.  ``F.interpolate``
@@ -28,18 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from stereo_semantic_vo_tpu_torch.core.config import ORBConfig, resolve_backend
+from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_score_rolled as _fast_score
+from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_scores, seq_sum
 from stereo_semantic_vo_tpu_torch.kernels.patch_extract import extract_patches, extract_patches_plain
-
-# FAST-9/16 Bresenham circle of radius 3, clockwise from 12 o'clock: (dy, dx)
-_CIRCLE = np.array(
-    [
-        (-3, 0), (-3, 1), (-2, 2), (-1, 3), (0, 3), (1, 3), (2, 2), (3, 1),
-        (3, 0), (3, -1), (2, -2), (1, -3), (0, -3), (-1, -3), (-2, -2), (-3, -1),
-    ],
-    dtype=np.int32,
-)
-_ARC = 9
-
 
 class Keypoints(NamedTuple):
     """Fixed-capacity keypoint set (all tensors length K = cfg.max_keypoints)."""
@@ -102,44 +94,6 @@ def resize_linear(img: torch.Tensor, Hn: int, Wn: int) -> torch.Tensor:
     return (Ry @ img) @ Rx
 
 
-def _seq_sum(terms):
-    """Sum in list order, starting from the first term (the reference's
-    sequential reduction order, so float sums agree bit for bit)."""
-    acc = terms[0]
-    for t in terms[1:]:
-        acc = acc + t
-    return acc
-
-
-def _fast_score(img: torch.Tensor, *thresholds: float) -> list[torch.Tensor]:
-    """FAST-9/16 corner response for every pixel at each threshold.
-    img: (H, W) float32 [0, 255].  Returns one (H, W) score per threshold
-    (0 where not a corner); the ring uses wrap-around rolls, as the
-    reference does (the caller's border mask hides the wrap)."""
-    circ = torch.stack([torch.roll(img, (-int(dy), -int(dx)), dims=(0, 1)) for dy, dx in _CIRCLE])
-    diff = circ - img  # (16, H, W)
-    shifts = torch.arange(16, device=img.device)[:, None, None]
-
-    def arc_any(bits):
-        # circular run of >= _ARC set bits in a 16-bit ring mask (int64)
-        m = torch.sum(bits.to(torch.int64) << shifts, dim=0)
-        m2 = m | (m << 16)
-        run = m2
-        for k in range(1, _ARC):
-            run = run & (m2 >> k)
-        return (run & 0xFFFF) != 0
-
-    scores = []
-    for threshold in thresholds:
-        brighter = diff > threshold
-        darker = diff < -threshold
-        is_corner = arc_any(brighter) | arc_any(darker)
-        sb = _seq_sum(torch.where(brighter, diff - threshold, 0.0).unbind(0))
-        sd = _seq_sum(torch.where(darker, -diff - threshold, 0.0).unbind(0))
-        scores.append(torch.where(is_corner, torch.maximum(sb, sd), 0.0))
-    return scores
-
-
 def _nms3(score: torch.Tensor) -> torch.Tensor:
     """3x3 non-max suppression (padding counts as -inf): keep local maxima."""
     m = F.max_pool2d(score[None, None], 3, stride=1, padding=1)[0, 0]
@@ -168,9 +122,9 @@ def _smooth(img: torch.Tensor, width: int = 5) -> torch.Tensor:
     hi = width - 1 - lo
     H, W = img.shape
     x = F.pad(img, (lo, hi))
-    x = _seq_sum([x[:, i : i + W] for i in range(width)])
+    x = seq_sum([x[:, i : i + W] for i in range(width)])
     x = F.pad(x, (0, 0, lo, hi))
-    x = _seq_sum([x[i : i + H] for i in range(width)])
+    x = seq_sum([x[i : i + H] for i in range(width)])
     return x * (1.0 / (width * width))
 
 
@@ -221,6 +175,18 @@ def _level_budgets(cfg: ORBConfig, n_candidates: int) -> list[int]:
     return [max(8, int(round(n_candidates * w / s))) for w in inv]
 
 
+def pyramid(image: torch.Tensor, cfg: ORBConfig) -> list[torch.Tensor]:
+    """The ``cfg.n_levels`` level images ``extract_orb`` scores, finest
+    first; each side shrinks by ``scale_factor`` and stops at 32 px."""
+    levels = [image]
+    for _ in range(cfg.n_levels - 1):
+        Hl, Wl = levels[-1].shape
+        Hn = max(int(round(Hl / cfg.scale_factor)), 32)
+        Wn = max(int(round(Wl / cfg.scale_factor)), 32)
+        levels.append(resize_linear(levels[-1], Hn, Wn))
+    return levels
+
+
 def extract_orb(image: torch.Tensor, cfg: ORBConfig) -> Keypoints:
     """Full ORB pipeline on one grayscale image (H, W) float32 in [0, 255].
 
@@ -228,9 +194,9 @@ def extract_orb(image: torch.Tensor, cfg: ORBConfig) -> Keypoints:
     ranked by response, with validity masks for unfilled slots."""
     if cfg.steer:
         raise NotImplementedError("steered BRIEF (ORBConfig.steer=True) is not ported yet (ROADMAP A2)")
-    if cfg.fast_backend not in ("xla", "auto"):
-        raise NotImplementedError("the FAST score kernel is not ported yet (ROADMAP B4)")
     dev = image.device
+    # "auto" keeps the rolled ring everywhere, as the reference's does
+    score = fast_scores if resolve_backend(cfg.fast_backend, dev, "xla", "xla") == "pallas" else _fast_score
     patch_backend = resolve_backend(cfg.patch_backend, dev, "pallas", "xla")
     budgets = _level_budgets(cfg, 2 * cfg.max_keypoints)
     bonus = 1e6  # strong corners outrank weak-cell fallbacks
@@ -244,11 +210,10 @@ def extract_orb(image: torch.Tensor, cfg: ORBConfig) -> Keypoints:
     r = cfg.patch_size // 2
 
     all_uv, all_rank, all_score, all_level, all_desc, all_valid = [], [], [], [], [], []
-    img_l = image
-    for level in range(cfg.n_levels):
+    for level, img_l in enumerate(pyramid(image, cfg)):
         Hl, Wl = img_l.shape
         scores = []
-        for sc in _fast_score(img_l, *ths):
+        for sc in score(img_l, ths):
             inner = torch.zeros_like(sc)  # kill borders (circle radius + patch)
             inner[b : Hl - b, b : Wl - b] = sc[b : Hl - b, b : Wl - b]
             scores.append(_nms3(inner))
@@ -271,11 +236,6 @@ def extract_orb(image: torch.Tensor, cfg: ORBConfig) -> Keypoints:
         all_level.append(torch.full(s.shape, level, dtype=torch.int32, device=dev))
         all_desc.append(desc)
         all_valid.append(s > 0.0)
-
-        if level + 1 < cfg.n_levels:
-            Hn = max(int(round(Hl / cfg.scale_factor)), 32)
-            Wn = max(int(round(Wl / cfg.scale_factor)), 32)
-            img_l = resize_linear(img_l, Hn, Wn)
 
     rank = torch.cat(all_rank)
     valid = torch.cat(all_valid)

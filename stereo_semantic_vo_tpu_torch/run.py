@@ -5,11 +5,12 @@ Example:
   python -m stereo_semantic_vo_tpu_torch.run --sequence /data/kitti/odometry/01 \
       --seq-id 01 --boxes-dir /data/boxes/0.05results --out out/
 
-Runs on the first CUDA device when there is one, on the CPU otherwise.
-``--dense-stereo`` samples the dense SGM disparity at the keypoints and
-``--local-ba N`` refines the 4-frame window every N frames; on a CUDA
-device both run on the package's kernels.  Online detection (--yolo-cfg /
---yolo-weights) is not ported yet and exits with an error.
+``--device`` (default ``cuda``) picks where it runs, as ``JAX_PLATFORMS``
+does for the reference; without a CUDA device ``--device cuda`` exits with
+an error.  ``--dense-stereo`` samples the dense SGM disparity at the
+keypoints and ``--local-ba N`` refines the 4-frame window every N frames;
+on a CUDA device both run on the package's kernels.  Online detection
+(--yolo-cfg / --yolo-weights) is not ported yet and exits with an error.
 """
 
 from __future__ import annotations
@@ -41,10 +42,14 @@ def main() -> None:
                    help="run windowed local BA every N frames (0 = off)")
     p.add_argument("--dense-stereo", action="store_true",
                    help="reference-faithful dense SGM disparity sampled at keypoints")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="run on the first CUDA device (default) or on the CPU")
     args = p.parse_args()
     for key, what in _NOT_PORTED.items():
         if getattr(args, key):
             p.error(f"{what} is not ported to the PyTorch package yet")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        p.error("--device cuda: no CUDA device is available (pass --device cpu to run on the CPU)")
 
     from stereo_semantic_vo_tpu_torch.core.config import VOConfig
     from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline
@@ -55,12 +60,11 @@ def main() -> None:
         cfg = dataclasses.replace(cfg, use_semantics=False)
     if args.dense_stereo:
         cfg = dataclasses.replace(cfg, stereo=dataclasses.replace(cfg.stereo, sparse_mode="dense"))
-    device = "cuda" if torch.cuda.is_available() else "cpu"
     paths = kitti.load_sequence_paths(args.sequence)
     frames = kitti.iter_frames(paths, args.boxes_dir, cfg.semantic.max_boxes, args.max_frames)
-    summary = VOPipeline(cfg, device=device, out_dir=args.out, local_ba_every=args.local_ba).run(frames)
+    summary = VOPipeline(cfg, device=args.device, out_dir=args.out, local_ba_every=args.local_ba).run(frames)
     report = {k: v for k, v in summary.items() if k != "positions"}
-    report["device"] = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
+    report["device"] = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
 
     if args.gt:
         from stereo_semantic_vo_tpu_torch.engine.trajectory import load_kitti_poses

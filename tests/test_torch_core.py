@@ -125,7 +125,7 @@ def test_rotation_to_quaternion_each_branch(branch):
 
 def test_camera_matches_jax():
     cc = JC.CameraConfig()
-    jc, tc = JCam.Camera.from_config(cc), TCam.Camera.from_config(TC.CameraConfig())
+    jc, tc = JCam.Camera.from_config(cc), TCam.Camera.from_config(TC.CameraConfig(), "cpu")
     rng = np.random.RandomState(3)
     pts = np.concatenate([rng.uniform(-5, 5, (40, 2)), rng.uniform(-1, 40, (40, 1))], 1).astype(np.float32)
     pts[0, 2] = 0.0  # guarded depth
@@ -167,14 +167,14 @@ def test_f32_geometry_disables_tf32_and_restores():
 def test_state_interop_round_trip():
     cfg = JC.VOConfig(orb=JC.ORBConfig(max_keypoints=64))
     arrays = {k: np.asarray(v) for k, v in j_init_state(cfg)._asdict().items()}
-    st = interop.state_from_numpy(arrays)
+    st = interop.state_from_numpy(arrays, "cpu")
     assert st.last_desc.dtype == torch.int32 and st.frame_idx == -1
     back = interop.state_to_numpy(st)
     assert set(arrays) - set(back) == {"last_desc_pm1", "map_desc_pm1"}
     for k, v in back.items():
         assert v.dtype == arrays[k].dtype, k
         np.testing.assert_array_equal(v, arrays[k], err_msg=k)
-    fresh = interop.state_to_numpy(t_init_state(interop.config_from_jax(cfg)))
+    fresh = interop.state_to_numpy(t_init_state(interop.config_from_jax(cfg), "cpu"))
     for k, v in fresh.items():
         np.testing.assert_array_equal(v, arrays[k], err_msg=k)
 

@@ -10,8 +10,10 @@ Tolerances: patches and matcher outputs exact; stereo costs rtol 1e-5
 (the kernel sums in the plain version's order, so they are equal in
 practice); disparities atol 1e-4 with equal valid masks; SGM aggregation
 exact (min, add and subtract in the plain version's order); the local-BA
-blocks rtol 3e-5, atol 1e-4 x max|plain|, cost rtol 1e-5
-(tests/test_ba_hessian.py's bounds: float32 sums in another order)."""
+blocks rtol 3e-5, atol 1e-4 x max|plain|, cost rtol 1e-5, and the
+motion-only build rtol 2e-5, atol 1e-6 x max|plain|, cost rtol 1e-5
+(tests/test_ba_hessian.py's bounds: float32 sums in another order); FAST
+scores and the Hamming matrix exact."""
 
 import dataclasses
 
@@ -26,10 +28,13 @@ from stereo_semantic_vo_tpu_torch.engine.state import init_state
 from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
 from stereo_semantic_vo_tpu_torch.engine.window_ba import refine_state
 from stereo_semantic_vo_tpu_torch.kernels import ba_hessian as TB
+from stereo_semantic_vo_tpu_torch.kernels import fast_score as TF
+from stereo_semantic_vo_tpu_torch.kernels import hamming as TH
 from stereo_semantic_vo_tpu_torch.kernels import matcher as TM
 from stereo_semantic_vo_tpu_torch.kernels import patch_extract as TP
 from stereo_semantic_vo_tpu_torch.kernels import sgm_scan as TG
 from stereo_semantic_vo_tpu_torch.ops.dense_stereo import cost_volume, edge_p2_planes
+from stereo_semantic_vo_tpu_torch.ops.orb import extract_orb, pyramid
 from stereo_semantic_vo_tpu_torch.kernels import sparse_stereo as TS
 from stereo_semantic_vo_tpu_torch.ops.stereo import sparse_disparity
 
@@ -148,6 +153,69 @@ def test_sgm_kernel_matches_plain(shape, case):
     assert torch.equal(got, TG.sgm_aggregate_plain(*args))
 
 
+@pytest.mark.parametrize("ths", [(20.0, 7.0), (20.0,)])
+def test_fast_kernel_matches_plain_at_the_level_shapes(ths):
+    dev = cuda_device()
+    levels = pyramid(t(two_plane_frame_source(H, W)(2)[0], dev), VOConfig.kitti().orb)
+    assert [tuple(x.shape) for x in levels[::7]] == [(376, 1241), (106, 346)]
+    for img in levels:
+        got = _launched(TF.fast_scores, TF.fast_scores, img, ths)
+        want = TF.fast_scores_plain(img, ths)
+        assert len(got) == len(ths)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), tuple(img.shape)
+    assert float(got[0].max()) > 0  # corners found
+
+
+def test_orb_with_fast_kernel_equals_rolled_ring():
+    """The 19-px border mask hides the zero halo: the same keypoints."""
+    dev = cuda_device()
+    img = t(two_plane_frame_source(H, W)(2)[0], dev)
+    k = VOConfig.kitti().orb
+    a = extract_orb(img, dataclasses.replace(k, fast_backend="pallas"))
+    b = extract_orb(img, dataclasses.replace(k, fast_backend="xla"))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("K", [512, 77, 0])
+def test_motion_hessian_kernel_matches_plain(K):
+    dev = cuda_device()
+    rng = np.random.RandomState(K)
+    c = CameraConfig()
+    X = np.stack([rng.uniform(-20, 20, K), rng.uniform(-5, 5, K), rng.uniform(5, 60, K)], -1).astype(np.float32)
+    pc = X + np.array([0.3, -0.1, 0.5], np.float32)
+    uv = np.stack([c.fx * pc[:, 0] / pc[:, 2] + c.cx, c.fy * pc[:, 1] / pc[:, 2] + c.cy], -1)
+    uv = (uv + rng.normal(0, 0.4, uv.shape)).astype(np.float32)
+    m = ((rng.rand(K) > 0.1) & (pc[:, 2] > 0.5)).astype(np.float32)
+    # evaluated off the true pose, as tests/test_ba_hessian.py does: at the
+    # true pose g is a sum of pure noise that cancels below its tolerance
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = [0.35, -0.1, 0.46]
+    intr = TB.motion_intrinsics(Camera.from_config(c, dev))
+    Xt, uvt = np.ascontiguousarray(X.T), np.ascontiguousarray(uv.T)  # the kernel takes contiguous rows
+    args = (t(T, dev), t(Xt, dev), t(uvt, dev), t(m[None], dev), intr, 5.991 ** 0.5)
+    got = _launched(TB.motion_hessian_gradient, TB.motion_hessian_gradient, *args)
+    want = TB.motion_hessian_gradient_plain(*args)
+    for name, a, b in zip(("H", "g"), got, want):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6 * max(float(b.abs().max()), 1e-30), msg=name)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    again = TB.motion_hessian_gradient(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: deterministic
+    assert torch.equal(got[0], got[0].T)
+
+
+@pytest.mark.parametrize("Q", [512, 2048])
+def test_hamming_matrix_kernel_matches_plain(Q):
+    dev = cuda_device()
+    rng = np.random.RandomState(Q)
+    q, tr = random_desc(rng, Q), random_desc(rng, 512)
+    tr[9] = q[4]
+    args = (t(q, dev), t(tr, dev))
+    got = _launched(TH.hamming_distance_matrix_pallas, TH.hamming_distance_matrix_pallas, *args)
+    assert torch.equal(got, TH.hamming_distance_matrix(*args)) and int(got[4, 9]) == 0
+
+
 def _ba_problem(dev, F, L, stereo, seed=0):
     rng = np.random.RandomState(seed)
     X = np.stack([rng.uniform(-15, 15, L), rng.uniform(-4, 4, L), rng.uniform(8, 50, L)], -1).astype(np.float32)
@@ -208,19 +276,24 @@ def test_dense_track_step_and_refine_read_nothing_back():
     assert TB.local_ba_blocks.launches == launches[1] + cfg.ba.local_iterations
 
 
-def test_track_step_reads_nothing_back():
+@pytest.mark.parametrize("knobs", [False, True])
+def test_track_step_reads_nothing_back(knobs):
     """Every guard of the step stays on the device: PyTorch's sync debug mode
-    raises on a synchronizing call (a prototype that may miss some)."""
+    raises on a synchronizing call (a prototype that may miss some).  With
+    the knobs on, the step runs the FAST kernel at each level and the fused
+    motion-BA build at each LM iteration."""
     dev = cuda_device()
     k = VOConfig.kitti()
     cfg = dataclasses.replace(
         k, camera=CameraConfig(width=320, height=240),
-        orb=dataclasses.replace(k.orb, max_keypoints=256, n_levels=3),
+        orb=dataclasses.replace(k.orb, max_keypoints=256, n_levels=3, fast_backend="pallas" if knobs else "auto"),
+        ba=dataclasses.replace(k.ba, hessian_backend="pallas" if knobs else "auto"),
     )
     src = two_plane_frame_source(240, 320)
     boxes, bv = torch.zeros((32, 4), device=dev), torch.zeros(32, dtype=torch.bool, device=dev)
     state, _ = TT.init_step(init_state(cfg, dev), TT.FrameInput(*(t(a, dev) for a in src(0)), boxes, bv), cfg)
     frame = TT.FrameInput(*(t(a, dev) for a in src(1)), boxes, bv)
+    launches = TF.fast_scores.launches, TB.motion_hessian_gradient.launches
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -228,3 +301,6 @@ def test_track_step_reads_nothing_back():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(out.pnp_ok)
+    n_fast, n_motion = (3, cfg.ba.iterations) if knobs else (0, 0)
+    assert TF.fast_scores.launches == launches[0] + n_fast
+    assert TB.motion_hessian_gradient.launches == launches[1] + n_motion

@@ -47,7 +47,7 @@ def _dense(cfg, backend):
 def runs():
     pinned, auto = _kitti_knobs()
     cfg_j, cfg_t = _dense(pinned, "xla"), _dense(auto, "auto")
-    sj, st = j_init_state(cfg_j), t_init_state(cfg_t)
+    sj, st = j_init_state(cfg_j), t_init_state(cfg_t, "cpu")
     out_j, out_t = [], []
     boxes, bv = _boxes()
     for i in range(N_FRAMES):
@@ -100,7 +100,7 @@ def test_cli_dense_stereo_local_ba_writes_trajectories(sequence, tmp_path):
     plumbing (flags, dense stereo, two window refines, trajectory files)."""
     out = subprocess.run(
         [sys.executable, "-m", "stereo_semantic_vo_tpu_torch.run", "--sequence", sequence,
-         "--out", str(tmp_path / "out"), "--dense-stereo", "--local-ba", "1", "--max-frames", "5"],
+         "--out", str(tmp_path / "out"), "--dense-stereo", "--local-ba", "1", "--max-frames", "5", "--device", "cpu"],
         capture_output=True, text=True, timeout=600, cwd=REPO,
     )
     assert out.returncode == 0, out.stderr[-2000:]

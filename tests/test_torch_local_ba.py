@@ -28,7 +28,7 @@ from stereo_semantic_vo_tpu_torch.kernels import ba_hessian as TK
 from stereo_semantic_vo_tpu_torch.ops import local_ba as TL
 from tests.torch_parity import n, t
 
-JCAM, TCAM = JCam.from_config(CameraConfig()), TCam.from_config(TCC())
+JCAM, TCAM = JCam.from_config(CameraConfig()), TCam.from_config(TCC(), "cpu")
 DELTA = float(BAConfig().huber_delta)
 NAMES = ("Hcc", "Hcp", "Hpp", "gc", "gp")
 

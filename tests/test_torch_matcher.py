@@ -42,6 +42,19 @@ def test_hamming_matches_numpy():
     )
 
 
+def test_hamming_matrix_plain_matches_pallas_interpret():
+    """Kernel 8: the plain version is the full-matrix kernel's contract."""
+    rng = np.random.RandomState(8)
+    q, tr = random_desc(rng, 300), random_desc(rng, 200)
+    tr[17] = q[5]  # an exact match: distance 0
+    want = n(JH.hamming_distance_matrix_pallas(jnp.asarray(q), jnp.asarray(tr)))
+    before = TH.hamming_distance_matrix_pallas.launches
+    got = n(TH.hamming_distance_matrix_pallas(t(q), t(tr)))
+    assert TH.hamming_distance_matrix_pallas.launches == before  # a CPU tensor takes the plain version
+    assert got.dtype == np.int32 and got.shape == (300, 200) and got[5, 17] == 0
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize(
     "name,Q,T",
     [("random", 256, 512), ("random", 512, 128), ("all_invalid", 128, 128),

@@ -31,7 +31,7 @@ from tests.torch_parity import n, t
 
 CFG = VOConfig.kitti("00")
 TCFG = config_from_jax(CFG)
-JC, TC = JCam.from_config(CFG.camera), TCam.from_config(TCFG.camera)
+JC, TC = JCam.from_config(CFG.camera), TCam.from_config(TCFG.camera, "cpu")
 
 
 def _pnp_data():

@@ -71,7 +71,7 @@ def _frame(i):
 @pytest.fixture(scope="module")
 def runs():
     cfg_j, cfg_t = _kitti_knobs()
-    sj, st = j_init_state(cfg_j), t_init_state(cfg_t)
+    sj, st = j_init_state(cfg_j), t_init_state(cfg_t, "cpu")
     out_j, out_t, states_j = [], [], []
     for i in range(N_FRAMES):
         left, right, boxes, bv = _frame(i)
@@ -116,7 +116,7 @@ def test_counters_match_jax(runs, frame):
 def test_port_resumes_from_jax_state(runs):
     """interop.state_from_numpy: the port continues the JAX package's state."""
     cfg_j, cfg_t, out_j, _, states_j = runs
-    state = interop.state_from_numpy(states_j[1])
+    state = interop.state_from_numpy(states_j[1], "cpu")
     ft = TT.FrameInput(*(t(a) for a in _frame(2)))
     _, ot = TT.track_step(state, ft, cfg_t)
     Tj, Tt = out_j[2].T_wc, n(ot.T_wc)
@@ -126,7 +126,7 @@ def test_port_resumes_from_jax_state(runs):
 
 def test_make_tracker_dispatches_init_then_track():
     _, cfg_t = _kitti_knobs()
-    state, step = TT.make_tracker(cfg_t)
+    state, step = TT.make_tracker(cfg_t, device="cpu")
     for i in range(2):
         state, out = step(state, TT.FrameInput(*(t(a) for a in _frame(i))))
     assert state.frame_idx == 1 and int(out.n_matches_last) > 30
@@ -145,13 +145,28 @@ def test_pipeline_on_cpu_writes_trajectories(tmp_path):
 @pytest.mark.parametrize("kwargs", [{"detector": object()}, {"ba_mesh": object()}])
 def test_pipeline_unported_arguments_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VOPipeline(_kitti_knobs()[1], **kwargs)
+        VOPipeline(_kitti_knobs()[1], device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("flags", [["--yolo-cfg", "x.cfg"], ["--yolo-weights", "x.weights"]])
 def test_cli_rejects_unported_flags(flags, tmp_path):
     out = subprocess.run(
-        [sys.executable, "-m", "stereo_semantic_vo_tpu_torch.run", "--sequence", str(tmp_path), *flags],
+        [sys.executable, "-m", "stereo_semantic_vo_tpu_torch.run", "--sequence", str(tmp_path), "--device", "cpu",
+         *flags],
         capture_output=True, text=True, timeout=120, cwd=REPO,
     )
     assert out.returncode == 2 and "not ported" in out.stderr
+
+
+def test_cli_without_a_card_exits_naming_the_device(tmp_path):
+    """The default --device cuda never falls back to the CPU: on a machine
+    without a CUDA device the CLI exits before it reads a frame."""
+    code = (
+        "import sys, torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "from stereo_semantic_vo_tpu_torch import run\n"
+        f"sys.argv = ['run', '--sequence', {str(tmp_path / 'missing')!r}]\n"
+        "run.main()\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr and "--device cuda" in out.stderr

@@ -71,7 +71,7 @@ def test_sparse_disparity_matches_jax_strips(mode):
     uv, valid = _keypoints(*left.shape)
     a = j_sparse(jnp.asarray(left), jnp.asarray(right), jnp.asarray(uv), jnp.asarray(valid),
                  JCam.from_config(CameraConfig()), StereoConfig(sparse_mode="strips"))
-    b = t_sparse(t(left), t(right), t(uv), t(valid), TCam.from_config(CameraConfig()),
+    b = t_sparse(t(left), t(right), t(uv), t(valid), TCam.from_config(CameraConfig(), "cpu"),
                  TSC(sparse_mode=mode))
     np.testing.assert_array_equal(n(b.valid), n(a.valid))
     assert n(a.valid).sum() > 20
@@ -85,7 +85,7 @@ def test_unported_modes_raise(mode):
     left, right = _scene()
     uv, valid = _keypoints(*left.shape, K=8)
     with pytest.raises(NotImplementedError, match="A3"):
-        t_sparse(t(left), t(right), t(uv), t(valid), TCam.from_config(CameraConfig()), TSC(sparse_mode=mode))
+        t_sparse(t(left), t(right), t(uv), t(valid), TCam.from_config(CameraConfig(), "cpu"), TSC(sparse_mode=mode))
 
 
 def test_dense_mode_matches_jax():
@@ -97,7 +97,7 @@ def test_dense_mode_matches_jax():
     uv, valid = _keypoints(*left.shape)
     a = j_sparse(jnp.asarray(left), jnp.asarray(right), jnp.asarray(uv), jnp.asarray(valid),
                  JCam.from_config(CameraConfig()), StereoConfig(sparse_mode="dense", dense_backend="xla"))
-    b = t_sparse(t(left), t(right), t(uv), t(valid), TCam.from_config(CameraConfig()), TSC(sparse_mode="dense"))
+    b = t_sparse(t(left), t(right), t(uv), t(valid), TCam.from_config(CameraConfig(), "cpu"), TSC(sparse_mode="dense"))
     va, vb = n(a.valid), n(b.valid)
     assert np.sum(va != vb) <= 1 and va.sum() > 30
     both = va & vb

@@ -90,7 +90,7 @@ def _obs_from_numpy(st, package):
         s = JW.VOState(**{k: jax.numpy.asarray(v) for k, v in st.items()})
         _, _, uid, uv, valid, disp = JW._window_view(s, W, K)
         return JW.build_observations(s.map_uid, s.map_valid, s.map_bad, s.frame_idx, uid, uv, valid, W, K, disp)
-    s = interop.state_from_numpy(st)
+    s = interop.state_from_numpy(st, "cpu")
     _, _, uid, uv, valid, disp = TW._window_view(s, W, K)
     return TW.build_observations(s.map_uid, s.map_valid, s.map_bad, s.frame_idx, uid, uv, valid, W, K, disp)
 
@@ -109,7 +109,7 @@ def test_build_observations_exact(jax_states, frame):
 @pytest.mark.parametrize("frame", range(WIN - 1, N_FRAMES))
 def test_refine_state_matches_jax(jax_states, frame):
     pre, post = jax_states
-    got = TW.refine_state(interop.state_from_numpy(pre[frame]), TCFG)
+    got = TW.refine_state(interop.state_from_numpy(pre[frame], "cpu"), TCFG)
     want = post[frame]
     _assert_pose_close(n(got.T_cw), want["T_cw"])
     for f in range(WIN):
@@ -121,14 +121,14 @@ def test_refine_state_matches_jax(jax_states, frame):
 
 def test_refine_state_passes_through_before_the_window_is_full(jax_states):
     pre, _ = jax_states
-    st = interop.state_from_numpy(pre[WIN - 1])._replace(frame_idx=WIN - 2)
+    st = interop.state_from_numpy(pre[WIN - 1], "cpu")._replace(frame_idx=WIN - 2)
     assert TW.refine_state(st, TCFG) is st
 
 
 def test_refine_state_keeps_the_state_when_too_few_landmarks(jax_states):
     """The solvability gate (>= 8 landmarks) selects with torch.where."""
     pre, _ = jax_states
-    st = interop.state_from_numpy(pre[WIN])
+    st = interop.state_from_numpy(pre[WIN], "cpu")
     st = st._replace(map_valid=torch.zeros_like(st.map_valid))
     out = TW.refine_state(st, TCFG)
     for name in ("T_cw", "win_T_cw", "map_Xw"):
