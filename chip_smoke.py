@@ -6,7 +6,8 @@ Phases, each of which raises (exit code != 0) when it fails:
 
 1. build the CUDA kernels of ``stereo_semantic_vo_tpu_torch/csrc`` with nvcc;
 2. compare each kernel with its plain PyTorch version on the card, at the
-   shapes the KITTI paths give it, and time both with CUDA events;
+   shapes the KITTI paths give it, and time both with CUDA events, the
+   kernel also alone on the device (``torch.profiler``);
 3. run ``VOPipeline(VOConfig.kitti("00"), device="cuda")`` on a procedural
    1241x376 two-plane sequence with exact ground truth, and check poses,
    tracking and that every kernel launched as often as the path calls it;
@@ -24,7 +25,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    per frame.
 
 Each kernel's line entry carries its time and its plain version's (CUDA
-events), the least time the card could take for the same work (``bound_ms``:
+events, wrapper included), its device time alone (``device_ms``: the
+profiler's durations of its CUDA kernels), the least time the card could take for the same work (``bound_ms``:
 the bytes it must move at 3.35 TB/s or its operations at the card's peak
 rate for their type, whichever is larger, from this run's shapes) and, where
 one PyTorch call computes the same function, that call's time
@@ -116,6 +118,26 @@ def median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, names: tuple[str, ...], reps: int = 20) -> float:
+    """Device time per call of ``fn()`` spent in the kernels whose names hold
+    one of ``names``: their durations from ``torch.profiler`` (CUPTI), so
+    without the wrapper's host time, which the CUDA-event median includes."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, seen = 0.0, set()
+    for e in prof.key_averages():
+        hit = [n for n in names if n in e.key]
+        if hit:
+            seen.update(hit)
+            total += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+    check(seen == set(names) and total > 0, f"profiler saw {sorted(seen)} of the kernels {list(names)}")
+    return total / 1e3 / reps
+
+
 def covered_pixels(H: int, W: int, y0: torch.Tensor, x0: torch.Tensor, h: int, w: int) -> int:
     """Pixels of an (H, W) image inside the union of the h x w windows at
     origins (y0, x0), columns wrapping at W: what a kernel that reads each
@@ -143,35 +165,49 @@ def pyramid_shapes(cfg, H: int, W: int) -> list[tuple[int, int, int]]:
 
 
 def compare_patches(cfg, dev, rng) -> dict:
-    from stereo_semantic_vo_tpu_torch.kernels.patch_extract import extract_patches, extract_patches_plain
+    """B1: one call for a frame's 8 levels against its plain version and
+    against 8 ``unfold`` gathers, bit-equal at every level shape."""
+    from stereo_semantic_vo_tpu_torch.kernels.patch_extract import (
+        extract_patches_levels,
+        extract_patches_levels_plain,
+    )
 
     r = cfg.orb.patch_size // 2
     P = 2 * r + 1
-    ms = plain_ms = lib_ms = nbytes = 0.0
+    imgs, ys, xs, counts, gathers, nbytes = [], [], [], [], [], 0.0
     for H, W, K in pyramid_shapes(cfg.orb, cfg.camera.height, cfg.camera.width):
         img = torch.from_numpy(rng.uniform(0, 255, (H, W)).astype(np.float32)).to(dev)
         y0 = torch.from_numpy(rng.randint(0, H - P + 1, K).astype(np.int32)).to(dev)
         x0 = torch.from_numpy(rng.randint(0, W - P + 1, K).astype(np.int32)).to(dev)
         y0[:2], x0[:2] = torch.tensor([0, H - P]), torch.tensor([W - P, 0])  # corners
-        got = extract_patches(img, y0, x0, r)
-        want = extract_patches_plain(img, y0, x0, r)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"patches differ at level shape {H}x{W}, K={K}")
+        imgs.append(img)
+        ys.append(y0)
+        xs.append(x0)
+        counts.append(K)
         # the library yardstick: one gather from the image's (H-P+1, W-P+1, P, P) window view
-        windows, yl, xl = img.unfold(0, P, 1).unfold(1, P, 1), y0.long(), x0.long()
-        check(torch.equal(windows[yl, xl], want), f"unfold gather differs at level shape {H}x{W}")
-        ms += median_ms(lambda: extract_patches(img, y0, x0, r))
-        plain_ms += median_ms(lambda: extract_patches_plain(img, y0, x0, r))
-        lib_ms += median_ms(lambda: windows[yl, xl])
+        gathers.append((img.unfold(0, P, 1).unfold(1, P, 1), y0.long(), x0.long()))
         # the image pixels under the union of the patches read once, every
         # patch pixel written, the origins
         nbytes += covered_pixels(H, W, y0, x0, P, P) * 4 + K * P * P * 4 + K * 8
-    say(f"patches: equal on all 8 level shapes; per frame {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-        f"{lib_ms:.4f} ms unfold gather")
+    args = (imgs, torch.cat(ys), torch.cat(xs), counts, r)
+    got = extract_patches_levels(*args)
+    want = extract_patches_levels_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "patches differ from the plain version")
+    for (windows, yl, xl), part, img in zip(gathers, torch.split(want, counts), imgs):
+        check(torch.equal(windows[yl, xl], part), f"unfold gather differs at level shape {tuple(img.shape)}")
+    ms = median_ms(lambda: extract_patches_levels(*args))
+    plain_ms = median_ms(lambda: extract_patches_levels_plain(*args))
+    lib_ms = median_ms(lambda: [windows[yl, xl] for windows, yl, xl in gathers])
+    dev_ms = device_ms(lambda: extract_patches_levels(*args), ("extract_patches_levels_kernel",))
+    say(f"patches: one launch for the 8 levels ({sum(counts)} patches), equal to the plain version and to the "
+        f"unfold gathers at all 8 level shapes; per frame {ms:.4f} ms kernel ({dev_ms:.4f} ms on the device), "
+        f"{plain_ms:.4f} ms plain, {lib_ms:.4f} ms for the 8 unfold gathers")
     return {"name": "extract_patches", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/patch_extract.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/patch_extract.py:75",
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound(nbytes, 0.0), "library_ms": lib_ms}
+            "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound(nbytes, 0.0),
+            "library_ms": lib_ms}
 
 
 def compare_stereo(cfg, dev, rng) -> dict:
@@ -210,6 +246,7 @@ def compare_stereo(cfg, dev, rng) -> dict:
     check(torch.equal(a.valid, b.valid), "sparse_disparity valid masks differ")
     check(torch.allclose(a.disparity, b.disparity, rtol=0, atol=1e-4), "sparse_disparity disparities differ")
     ms = median_ms(lambda: keypoint_stereo_costs(*args))
+    dev_ms = device_ms(lambda: keypoint_stereo_costs(*args), ("stereo_costs_kernel",))
     plain_ms = median_ms(lambda: keypoint_stereo_costs_plain(*args))
     say(f"stereo costs: max abs err {err} (rtol {STEREO_RTOL}), valid masks equal "
         f"({int(a.valid.sum())}/{K} valid); {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
@@ -221,7 +258,8 @@ def compare_stereo(cfg, dev, rng) -> dict:
     return {"name": "keypoint_stereo_costs", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/sparse_stereo.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/sparse_stereo.py:142",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(nbytes, 10.0 * K * D * P * P),
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            **bound(nbytes, 10.0 * K * D * P * P),
             "library_ms": None}
 
 
@@ -229,7 +267,7 @@ def compare_matcher(cfg, dev, rng, popc_rate: float) -> dict:
     from stereo_semantic_vo_tpu_torch.kernels.matcher import fused_best_match, fused_best_match_plain
 
     T = cfg.orb.max_keypoints
-    ms = plain_ms = bound_ms = 0.0
+    ms = dev_ms = plain_ms = bound_ms = 0.0
     for Q in (cfg.window.max_map_points, cfg.orb.max_keypoints):
         q = rng.randint(0, 2**32, (Q, 8), dtype=np.uint64).astype(np.uint32)
         t = rng.randint(0, 2**32, (T, 8), dtype=np.uint64).astype(np.uint32)
@@ -246,6 +284,7 @@ def compare_matcher(cfg, dev, rng, popc_rate: float) -> dict:
         for name, g, w in zip(("idx", "best", "second"), got, want):
             check(torch.equal(g, w), f"matcher {name} differs at Q={Q}, T={T}")
         ms += median_ms(lambda: fused_best_match(*args))
+        dev_ms += device_ms(lambda: fused_best_match(*args), ("fused_best_match_kernel",))
         plain_ms += median_ms(lambda: fused_best_match_plain(*args))
         b = bound((Q + T) * 33 + 12 * Q, Q * T * 8, popc_rate)  # words and masks in, 3 ints out
         bound_ms += b["bound_ms"]
@@ -254,67 +293,75 @@ def compare_matcher(cfg, dev, rng, popc_rate: float) -> dict:
     return {"name": "fused_best_match", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/matcher.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/matcher.py:59",
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": b["bound_by"], "library_ms": None}
 
 
 def frame_aggregations(cfg, dev) -> list[tuple]:
-    """The kernel arguments of the three SGM aggregations one dense frame
-    makes (left and right volumes with their P2 planes, the refine volume at
-    penalty scale 0.5), recorded from ``dense_disparity`` on a 1241x376 frame."""
+    """The kernel arguments of the SGM calls one dense frame makes, recorded
+    from ``dense_disparity`` on a 1241x376 frame: the left and right volumes
+    with their P2 planes in one call, then the refine volume at penalty
+    scale 0.5."""
     from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
     from stereo_semantic_vo_tpu_torch.ops import dense_stereo
 
-    sc = cfg.stereo
     left, right = (torch.from_numpy(a).to(dev) for a in two_plane_frame_source(cfg.camera.height, cfg.camera.width)(3))
-    calls, aggregate = [], dense_stereo.sgm_aggregate
+    calls, batch = [], dense_stereo.sgm_aggregate_batch
 
-    def record(vol, cfg, p2x_h=None, p2x_v=None, scale=1.0):
-        calls.append((vol, sc.p1 * scale, sc.p2 * scale, p2x_h * scale, p2x_v * scale))
-        return aggregate(vol, cfg, p2x_h, p2x_v, scale)
+    def record(vols, cfg, planes, scale=1.0):
+        calls.append((list(vols), cfg.p1 * scale, cfg.p2 * scale,
+                      [None if h is None else h * scale for h, _ in planes],
+                      [None if v is None else v * scale for _, v in planes]))
+        return batch(vols, cfg, planes, scale)
 
-    dense_stereo.sgm_aggregate = record
+    dense_stereo.sgm_aggregate_batch = record
     try:
-        dense_stereo.dense_disparity(left, right, sc)
+        dense_stereo.dense_disparity(left, right, cfg.stereo)
     finally:
-        dense_stereo.sgm_aggregate = aggregate
-    check(len(calls) == 3, f"a dense frame made {len(calls)} SGM aggregations, expected 3")
+        dense_stereo.sgm_aggregate_batch = batch
+    check([len(c[0]) for c in calls] == [2, 1],
+          f"a dense frame made SGM calls of {[len(c[0]) for c in calls]} volumes, expected [2, 1]")
     return calls
 
 
 def compare_sgm(cfg, dev) -> dict:
     """B6 on a frame's real cost volumes (376x1241x48): scalar P2, and the
-    frame's three aggregations (P2 planes; the refine pass at scale 0.5)."""
-    from stereo_semantic_vo_tpu_torch.kernels.sgm_scan import sgm_aggregate, sgm_aggregate_plain
+    frame's three aggregations through the batched entry (left and right
+    with P2 planes in one call; the refine pass at scale 0.5)."""
+    from stereo_semantic_vo_tpu_torch.kernels.sgm_scan import sgm_aggregate_batch, sgm_aggregate_plain
 
-    agg = frame_aggregations(cfg, dev)
-    vol, p1, p2 = agg[0][:3]
-    cases = [("scalar P2", (vol, p1, p2, None, None)), ("left, P2 planes", agg[0]),
-             ("right, P2 planes", agg[1]), ("refine, scale 0.5", agg[2])]
-    per_case = []
-    for name, args in cases:
-        got = sgm_aggregate(*args)
-        want = sgm_aggregate_plain(*args)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"SGM kernel differs from its plain version ({name}): "
-              f"max abs {float((got - want).abs().max())}")
-        per_case.append(median_ms(lambda: sgm_aggregate(*args), reps=20, warmup=2))
-    # a frame's three aggregations in one timed call, kernel and plain
-    ms = median_ms(lambda: [sgm_aggregate(*args) for args in agg], reps=20, warmup=2)
-    plain_ms = median_ms(lambda: [sgm_aggregate_plain(*args) for args in agg], reps=5, warmup=1)
+    calls = frame_aggregations(cfg, dev)
+    (vol_l, vol_r), p1, p2, hs, vs = calls[0]
+    (vol_f,), p1f, p2f, (hf,), (vf,) = calls[1]
+    got = [sgm_aggregate_batch([vol_l], p1, p2)[0], *sgm_aggregate_batch(*calls[0]),
+           sgm_aggregate_batch(*calls[1])[0]]
+    want = [sgm_aggregate_plain(vol_l, p1, p2), sgm_aggregate_plain(vol_l, p1, p2, hs[0], vs[0]),
+            sgm_aggregate_plain(vol_r, p1, p2, hs[1], vs[1]), sgm_aggregate_plain(vol_f, p1f, p2f, hf, vf)]
+    torch.cuda.synchronize()
+    names = ("scalar P2", "left, P2 planes", "right, P2 planes", "refine, scale 0.5")
+    for name, g, w in zip(names, got, want):
+        check(torch.equal(g, w), f"SGM kernel differs from its plain version ({name}): "
+              f"max abs {float((g - w).abs().max())}")
+    # a frame's SGM work, kernel and plain: the left + right call, then the refine call
+    ms = median_ms(lambda: [sgm_aggregate_batch(*c) for c in calls], reps=20, warmup=2)
+    dev_ms = device_ms(lambda: [sgm_aggregate_batch(*c) for c in calls], ("sgm_sweeps_kernel", "sgm_sum_kernel"))
+    plain_ms = median_ms(lambda: [sgm_aggregate_plain(*a) for a in
+                                  ((vol_l, p1, p2, hs[0], vs[0]), (vol_r, p1, p2, hs[1], vs[1]),
+                                   (vol_f, p1f, p2f, hf, vf))], reps=5, warmup=1)
     say("sgm: bit-equal to the plain version at 376x1241x48 (scalar P2, the frame's left and right "
-        "aggregations with P2 planes, its refine at scale 0.5); per aggregation (4 launches) "
-        + "; ".join(f"{n} {k:.3f} ms" for (n, _), k in zip(cases, per_case))
-        + f"; per frame (3 aggregations) {ms:.3f} ms kernel, {plain_ms:.1f} ms plain")
+        "aggregations with P2 planes in one call, its refine at scale 0.5); per frame (3 aggregations, 2 calls, "
+        f"4 launches) {ms:.3f} ms kernel ({dev_ms:.3f} ms on the device), {plain_ms:.1f} ms plain")
     # per aggregation: the volume in, the sum out, the P2 planes; ~8 flops
     # per cell and direction (the d +- 1 and P2 candidates, their min, the
     # minus prev_min, the add into the sum), 4 directions
-    nbytes = sum(2 * a[0].numel() * 4 + sum(p.numel() * 4 for p in a[3:] if p is not None) for a in agg)
-    ops = sum(32.0 * a[0].numel() for a in agg)
+    aggs = [(v, h, w) for c in calls for v, h, w in zip(c[0], c[3], c[4])]
+    nbytes = sum(2 * v.numel() * 4 + sum(p.numel() * 4 for p in (h, w) if p is not None) for v, h, w in aggs)
+    ops = sum(32.0 * v.numel() for v, _, _ in aggs)
     return {"name": "sgm_aggregate", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/sgm_scan.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/sgm_scan.py:117",
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound(nbytes, ops), "library_ms": None}
+            "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound(nbytes, ops),
+            "library_ms": None}
 
 
 def local_ba_problem(cam_cfg, dev, F=4, L=2048, seed=0):
@@ -357,6 +404,7 @@ def compare_local_ba(cfg, dev) -> dict:
           f"local-BA cost {float(got[5])} vs plain {float(want[5])}")
     check(all(torch.equal(a, b) for a, b in zip(got, again)), "local-BA kernel is not deterministic")
     ms = median_ms(lambda: local_ba_blocks(*args))
+    dev_ms = device_ms(lambda: local_ba_blocks(*args), ("local_ba_blocks_kernel", "local_ba_finalize_kernel"))
     plain_ms = median_ms(lambda: local_ba_blocks_plain(*args))
     say(f"local-BA blocks: F=4, L=2048 with the stereo row within rtol {BA_RTOL} / atol {BA_ATOL_REL} x max "
         f"(max abs err {err:.4g}), cost within rtol {BA_COST_RTOL}, two runs bit-equal; per build "
@@ -368,7 +416,8 @@ def compare_local_ba(cfg, dev) -> dict:
     return {"name": "local_ba_blocks", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/ba_hessian.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/ba_hessian.py:270",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(nbytes, 600.0 * F * L),
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            **bound(nbytes, 600.0 * F * L),
             "library_ms": None}
 
 
@@ -382,7 +431,7 @@ def compare_fast(cfg, dev) -> dict:
     oc = cfg.orb
     ths = (float(oc.fast_threshold), float(oc.fast_min_threshold))
     levels = pyramid(torch.from_numpy(two_plane_frame_source(cfg.camera.height, cfg.camera.width)(3)[0]).to(dev), oc)
-    ms = plain_ms = nbytes = ops = 0.0
+    ms = dev_ms = plain_ms = nbytes = ops = 0.0
     for img in levels:
         got, want = fast_scores(img, ths), fast_scores_plain(img, ths)
         torch.cuda.synchronize()
@@ -390,6 +439,7 @@ def compare_fast(cfg, dev) -> dict:
             check(torch.equal(g, w), f"FAST scores differ at level shape {tuple(img.shape)}: "
                   f"max abs {float((g - w).abs().max())}")
         ms += median_ms(lambda: fast_scores(img, ths))
+        dev_ms += device_ms(lambda: fast_scores(img, ths), ("fast_scores_kernel",))
         plain_ms += median_ms(lambda: fast_scores_plain(img, ths), reps=20, warmup=2)
         # the image in, a score map per threshold out; 16 differences, then
         # per threshold 32 subtractions, two 16-term sums and a max
@@ -405,7 +455,8 @@ def compare_fast(cfg, dev) -> dict:
     return {"name": "fast_scores", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/fast_score.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/fast_score.py:93",
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound(nbytes, ops), "library_ms": None}
+            "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound(nbytes, ops),
+            "library_ms": None}
 
 
 def motion_problem(cam_cfg, dev, K=512, seed=0, noise=0.4):
@@ -455,6 +506,7 @@ def compare_motion_hessian(cfg, dev) -> dict:
           f"motion build cost {float(got[2])} vs plain {float(want[2])}")
     check(all(torch.equal(a, b) for a, b in zip(got, again)), "motion build kernel is not deterministic")
     ms = median_ms(lambda: motion_hessian_gradient(*args))
+    dev_ms = device_ms(lambda: motion_hessian_gradient(*args), ("motion_hessian_kernel",))
     plain_ms = median_ms(lambda: motion_hessian_gradient_plain(*args))
     lm = {}
     for backend in ("pallas", "xla"):
@@ -470,7 +522,8 @@ def compare_motion_hessian(cfg, dev) -> dict:
     return {"name": "motion_hessian_gradient", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/ba_hessian.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/ba_hessian.py:115",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(nbytes, 230.0 * K), "library_ms": None,
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound(nbytes, 230.0 * K),
+            "library_ms": None,
             "motion_only_ba_ms": lm}
 
 
@@ -489,7 +542,7 @@ def compare_hamming_matrix(cfg, dev, rng, popc_rate: float) -> dict:
     def bits(d):
         return ((d[:, :, None] >> shifts) & 1).reshape(d.shape[0], DESC_BITS).to(torch.float32)
 
-    ms = plain_ms = lib_ms = bound_ms = 0.0
+    ms = dev_ms = plain_ms = lib_ms = bound_ms = 0.0
     for Q in (cfg.window.max_map_points, cfg.orb.max_keypoints):
         q = rng.randint(0, 2**32, (Q, 8), dtype=np.uint64).astype(np.uint32)
         t = rng.randint(0, 2**32, (T, 8), dtype=np.uint64).astype(np.uint32)
@@ -503,6 +556,7 @@ def compare_hamming_matrix(cfg, dev, rng, popc_rate: float) -> dict:
         check(torch.equal(got, want), f"Hamming matrix differs from its plain version at Q={Q}, T={T}")
         check(torch.equal(lib.to(torch.int32), want), f"torch.cdist(p=0) differs from the Hamming matrix at Q={Q}")
         ms += median_ms(lambda: hamming_distance_matrix_pallas(qd, td))
+        dev_ms += device_ms(lambda: hamming_distance_matrix_pallas(qd, td), ("hamming_matrix_kernel",))
         plain_ms += median_ms(lambda: hamming_distance_matrix(qd, td))
         lib_ms += median_ms(lambda: torch.cdist(qb, tb, p=0))
         b = bound((Q + T) * 32 + Q * T * 4, Q * T * 8, popc_rate)  # words in, the matrix out
@@ -512,7 +566,7 @@ def compare_hamming_matrix(cfg, dev, rng, popc_rate: float) -> dict:
     return {"name": "hamming_distance_matrix_pallas", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/hamming.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/hamming.py:73",
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": b["bound_by"], "library_ms": lib_ms,
             "note": "no path of either package calls it; its shapes are the matcher's"}
 
@@ -622,8 +676,8 @@ def main() -> None:
     from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_scores
     from stereo_semantic_vo_tpu_torch.kernels.hamming import hamming_distance_matrix_pallas
     from stereo_semantic_vo_tpu_torch.kernels.matcher import fused_best_match
-    from stereo_semantic_vo_tpu_torch.kernels.patch_extract import extract_patches
-    from stereo_semantic_vo_tpu_torch.kernels.sgm_scan import sgm_aggregate
+    from stereo_semantic_vo_tpu_torch.kernels.patch_extract import extract_patches_levels
+    from stereo_semantic_vo_tpu_torch.kernels.sgm_scan import sgm_aggregate_batch
     from stereo_semantic_vo_tpu_torch.kernels.sparse_stereo import keypoint_stereo_costs
 
     card = card_line()
@@ -653,16 +707,18 @@ def main() -> None:
                compare_sgm(dense_cfg, dev), compare_local_ba(cfg, dev),
                compare_hamming_matrix(cfg, dev, rng, popc_rate)]
 
-    kernels = {"extract_patches": extract_patches, "keypoint_stereo_costs": keypoint_stereo_costs,
+    # each entry's launch counter: extract_patches and sgm_aggregate count on
+    # the batched entries they call
+    kernels = {"extract_patches": extract_patches_levels, "keypoint_stereo_costs": keypoint_stereo_costs,
                "fused_best_match": fused_best_match, "fast_scores": fast_scores,
-               "motion_hessian_gradient": motion_hessian_gradient, "sgm_aggregate": sgm_aggregate,
+               "motion_hessian_gradient": motion_hessian_gradient, "sgm_aggregate": sgm_aggregate_batch,
                "local_ba_blocks": local_ba_blocks, "hamming_distance_matrix_pallas": hamming_distance_matrix_pallas}
     off = {"fast_scores": 0, "motion_hessian_gradient": 0, "hamming_distance_matrix_pallas": 0}
     by_path = {}
 
     # 3-5. the first path: sparse stereo, no window BA
     n_f = N_FRAMES
-    expected = {"extract_patches": cfg.orb.n_levels * n_f, "keypoint_stereo_costs": n_f,
+    expected = {"extract_patches": n_f, "keypoint_stereo_costs": n_f,
                 "fused_best_match": 2 * (n_f - 1), "sgm_aggregate": 0, "local_ba_blocks": 0, **off}
     pipe, wall, slice_poses, by_path["sparse"] = drive_path("slice", cfg, dev, n_f, 0, kernels, expected)
     last = list(frames(cfg, n_f + 1))[-1]
@@ -673,8 +729,8 @@ def main() -> None:
 
     # 6. the second path: dense stereo sampled at the keypoints, window BA every frame
     n_d, win = N_DENSE_FRAMES, cfg.window.window_frames
-    expected = {"extract_patches": cfg.orb.n_levels * n_d, "keypoint_stereo_costs": 0,
-                "fused_best_match": 2 * (n_d - 1), "sgm_aggregate": 12 * n_d,
+    expected = {"extract_patches": n_d, "keypoint_stereo_costs": 0,
+                "fused_best_match": 2 * (n_d - 1), "sgm_aggregate": 4 * n_d,
                 "local_ba_blocks": cfg.ba.local_iterations * (n_d - (win - 1)), **off}
     pipe, wall, poses, by_path["dense_window_ba"] = drive_path(
         "dense + window BA", dense_cfg, dev, n_d, 1, kernels, expected)
@@ -688,7 +744,7 @@ def main() -> None:
     # 7. the third path: the first path with the FAST kernel at every level
     # and the fused motion-BA build at every LM step of the tracker's BA
     n_k = N_KNOB_FRAMES
-    expected = {"extract_patches": cfg.orb.n_levels * n_k, "keypoint_stereo_costs": n_k,
+    expected = {"extract_patches": n_k, "keypoint_stereo_costs": n_k,
                 "fused_best_match": 2 * (n_k - 1), "sgm_aggregate": 0, "local_ba_blocks": 0,
                 "fast_scores": cfg.orb.n_levels * n_k, "motion_hessian_gradient": cfg.ba.iterations * (n_k - 1),
                 "hamming_distance_matrix_pallas": 0}

@@ -33,13 +33,13 @@ NVCC_FLAGS = [
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: (pointers..., sizes..., stream) -> cudaError_t as int
 SIGNATURES = {
-    "ssvo_extract_patches": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
+    "ssvo_extract_patches_levels": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P],
     "ssvo_keypoint_stereo_costs": [
         _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float, _P, _P,
     ],
     "ssvo_fused_best_match": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-    "ssvo_sgm_directional": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    "ssvo_sgm_aggregate": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P],
     "ssvo_local_ba_blocks": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],
     "ssvo_fast_scores": [_P, _I, _I, _I, _F, _F, _P, _P],
     "ssvo_motion_hessian_gradient": [_P, _P, _P, _P, _P, _I, _F, _P, _P],
@@ -127,10 +127,12 @@ def _compile_and_link(sources: list[str], path: str) -> str:
 
 
 def stream_handle(t) -> int:
-    """The current CUDA stream of tensor ``t``'s device, as an int."""
+    """The current CUDA stream of tensor ``t``'s device, as an int: the raw
+    handle, read as Triton's launcher reads it, since
+    ``torch.cuda.current_stream`` builds a Stream object at every call."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check_cuda(t, name: str, dtype, shape: tuple) -> None:

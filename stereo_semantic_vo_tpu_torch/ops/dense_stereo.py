@@ -7,7 +7,9 @@ stand-in for MSA's spanning-tree solve), with the same functions and
 outputs.  The aggregation dispatches on ``StereoConfig.dense_backend``:
 "pallas" is the CUDA scanline kernel (``kernels/sgm_scan.py``; on a CPU
 tensor its plain version), "xla" the plain scan; "auto" picks the kernel on
-a CUDA device and the plain scan on the CPU.
+a CUDA device and the plain scan on the CPU.  ``dense_disparity`` hands the
+left and right volumes to one aggregation call, so the kernel sweeps both
+in the same launches.
 
 Reproduced as the reference has them: the ``jnp.roll`` wraps at the image
 border (in the cost volume and the P2 planes) and the 7x7 box sum in its
@@ -104,6 +106,26 @@ def edge_p2_planes(base: torch.Tensor, cfg: StereoConfig) -> tuple[torch.Tensor,
     return lo + span * torch.exp(-gx * inv_g), lo + span * torch.exp(-gy * inv_g)
 
 
+def sgm_aggregate_batch(
+    vols: list[torch.Tensor],
+    cfg: StereoConfig,
+    planes: list[tuple[torch.Tensor | None, torch.Tensor | None]] | None = None,
+    scale: float = 1.0,
+) -> list[torch.Tensor]:
+    """4-path SGM (horizontal both ways, then vertical both ways) of
+    same-shape volumes that the kernel aggregates in the same launches.
+    ``planes`` holds each volume's optional (p2x_h, p2x_v) per-position P2
+    planes; ``scale`` multiplies every penalty (the refine pass runs at 0.5)."""
+    p1, p2 = cfg.p1 * scale, cfg.p2 * scale
+    planes = planes or [(None, None)] * len(vols)
+    p2x_h = [None if h is None else h * scale for h, _ in planes]
+    p2x_v = [None if v is None else v * scale for _, v in planes]
+    backend = resolve_backend(cfg.dense_backend, vols[0].device, "pallas", "xla")
+    if backend == "pallas":
+        return sgm_scan.sgm_aggregate_batch(vols, p1, p2, p2x_h, p2x_v)
+    return sgm_scan.sgm_aggregate_batch_plain(vols, p1, p2, p2x_h, p2x_v)
+
+
 def sgm_aggregate(
     vol: torch.Tensor,
     cfg: StereoConfig,
@@ -111,18 +133,8 @@ def sgm_aggregate(
     p2x_v: torch.Tensor | None = None,
     scale: float = 1.0,
 ) -> torch.Tensor:
-    """4-path SGM (horizontal both ways, then vertical both ways).
-    ``p2x_h`` / ``p2x_v`` (H, W) are optional per-position P2 planes;
-    ``scale`` multiplies every penalty (the refine pass runs at 0.5)."""
-    p1, p2 = cfg.p1 * scale, cfg.p2 * scale
-    if p2x_h is not None:
-        p2x_h = p2x_h * scale
-    if p2x_v is not None:
-        p2x_v = p2x_v * scale
-    backend = resolve_backend(cfg.dense_backend, vol.device, "pallas", "xla")
-    if backend == "pallas":
-        return sgm_scan.sgm_aggregate(vol, p1, p2, p2x_h, p2x_v)
-    return sgm_scan.sgm_aggregate_plain(vol, p1, p2, p2x_h, p2x_v)
+    """``sgm_aggregate_batch`` of one volume."""
+    return sgm_aggregate_batch([vol], cfg, [(p2x_h, p2x_v)], scale)[0]
 
 
 def _wta_subpixel(agg: torch.Tensor, min_disp: float) -> torch.Tensor:
@@ -152,12 +164,14 @@ def dense_disparity(
         p2h_l, p2v_l = edge_p2_planes(left, cfg)
         p2h_r, p2v_r = edge_p2_planes(right, cfg)
 
-    vol_l = cost_volume(left, right, cfg, False, left_rgb, right_rgb)
-    disp_l = _wta_subpixel(sgm_aggregate(vol_l, cfg, p2h_l, p2v_l), cfg.min_disparity)
-    del vol_l
-    vol_r = cost_volume(left, right, cfg, True, left_rgb, right_rgb)
-    disp_r = _wta_subpixel(sgm_aggregate(vol_r, cfg, p2h_r, p2v_r), cfg.min_disparity)
-    del vol_r
+    # both volumes live at once (2 x 89.6 MB at 1241x376x48) so one
+    # aggregation call, two kernel launches, covers them
+    vols = [cost_volume(left, right, cfg, rb, left_rgb, right_rgb) for rb in (False, True)]
+    agg_l, agg_r = sgm_aggregate_batch(vols, cfg, [(p2h_l, p2v_l), (p2h_r, p2v_r)])
+    del vols
+    disp_l = _wta_subpixel(agg_l, cfg.min_disparity)
+    disp_r = _wta_subpixel(agg_r, cfg.min_disparity)
+    del agg_l, agg_r
 
     # LR check: d_l(x) vs d_r(x - d_l(x))
     H, W = left.shape

@@ -31,7 +31,10 @@ import torch.nn.functional as F
 from stereo_semantic_vo_tpu_torch.core.config import ORBConfig, resolve_backend
 from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_score_rolled as _fast_score
 from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_scores, seq_sum
-from stereo_semantic_vo_tpu_torch.kernels.patch_extract import extract_patches, extract_patches_plain
+from stereo_semantic_vo_tpu_torch.kernels.patch_extract import (
+    extract_patches_levels,
+    extract_patches_levels_plain,
+)
 
 class Keypoints(NamedTuple):
     """Fixed-capacity keypoint set (all tensors length K = cfg.max_keypoints)."""
@@ -128,16 +131,14 @@ def _smooth(img: torch.Tensor, width: int = 5) -> torch.Tensor:
     return x * (1.0 / (width * width))
 
 
-def _get_patches(img: torch.Tensor, xy: torch.Tensor, r: int, backend: str) -> torch.Tensor:
-    """(N, P, P) patches around integer keypoints xy (x, y): the kernel
-    ("pallas") or the plain gather ("xla"), from the same clamped origin."""
-    H, W = img.shape
+def _patch_origins(shape: tuple[int, int], xy: torch.Tensor, r: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-left (y0, x0) int32 origins of the P x P patches around integer
+    keypoints xy (x, y), clamped into an image of ``shape``."""
+    H, W = shape
     P = 2 * r + 1
     y0 = torch.clamp(xy[:, 1] - r, 0, H - P).to(torch.int32)
     x0 = torch.clamp(xy[:, 0] - r, 0, W - P).to(torch.int32)
-    if backend == "pallas":
-        return extract_patches(img, y0, x0, r)
-    return extract_patches_plain(img, y0, x0, r)
+    return y0, x0
 
 
 @functools.lru_cache(maxsize=None)
@@ -209,7 +210,8 @@ def extract_orb(image: torch.Tensor, cfg: ORBConfig) -> Keypoints:
     b = cfg.border
     r = cfg.patch_size // 2
 
-    all_uv, all_rank, all_score, all_level, all_desc, all_valid = [], [], [], [], [], []
+    all_uv, all_rank, all_score, all_level, all_valid = [], [], [], [], []
+    smoothed, all_y0, all_x0, counts = [], [], [], []
     for level, img_l in enumerate(pyramid(image, cfg)):
         Hl, Wl = img_l.shape
         scores = []
@@ -227,15 +229,23 @@ def extract_orb(image: torch.Tensor, cfg: ORBConfig) -> Keypoints:
         k_cell = max(1, math.ceil(budgets[level] / (cfg.grid_rows * cfg.grid_cols)))
         flat_idx, s = _grid_topk(rank, cfg.grid_rows, cfg.grid_cols, k_cell)
         xy = torch.stack([flat_idx % Wl, flat_idx // Wl], dim=-1)
-        patches = _get_patches(_smooth(img_l, cfg.smooth_width), xy, r, patch_backend)
-        desc = _describe_upright(patches, cfg.brief_seed, cfg.descriptor_bits, cfg.patch_size)
+        smoothed.append(_smooth(img_l, cfg.smooth_width))
+        y0, x0 = _patch_origins((Hl, Wl), xy, r)
+        all_y0.append(y0)
+        all_x0.append(x0)
+        counts.append(xy.shape[0])
 
         all_uv.append(xy.to(torch.float32) * (cfg.scale_factor**level))
         all_rank.append(s)
         all_score.append(resp.reshape(-1)[flat_idx])
         all_level.append(torch.full(s.shape, level, dtype=torch.int32, device=dev))
-        all_desc.append(desc)
         all_valid.append(s > 0.0)
+
+    # every level's patches in one kernel launch ("pallas") or the plain
+    # gather ("xla"), then BRIEF on all of them at once
+    extract = extract_patches_levels if patch_backend == "pallas" else extract_patches_levels_plain
+    patches = extract(smoothed, torch.cat(all_y0), torch.cat(all_x0), counts, r)
+    desc = _describe_upright(patches, cfg.brief_seed, cfg.descriptor_bits, cfg.patch_size)
 
     rank = torch.cat(all_rank)
     valid = torch.cat(all_valid)
@@ -248,5 +258,5 @@ def extract_orb(image: torch.Tensor, cfg: ORBConfig) -> Keypoints:
         angle=torch.zeros(top_i.shape, dtype=image.dtype, device=dev),
         level=torch.cat(all_level)[top_i],
         valid=top_r > 0.0,
-        desc=torch.cat(all_desc)[top_i],
+        desc=desc[top_i],
     )

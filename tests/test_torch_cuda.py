@@ -6,7 +6,7 @@ JAX, so it also runs on a machine that has only PyTorch, from the repo root:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: patches and matcher outputs exact; stereo costs rtol 1e-5
+Tolerances: patches (all pyramid levels in one launch) and matcher outputs exact; stereo costs rtol 1e-5
 (the kernel sums in the plain version's order, so they are equal in
 practice); disparities atol 1e-4 with equal valid masks; SGM aggregation
 exact (min, add and subtract in the plain version's order); the local-BA
@@ -78,8 +78,31 @@ def test_patch_kernel_matches_plain(shape, K):
     x0 = rng.randint(0, w - 31 + 1, K).astype(np.int32)
     y0[:2], x0[:2] = [0, h - 31], [w - 31, 0]
     args = (t(img, dev), t(y0, dev), t(x0, dev), 15)
-    got = _launched(TP.extract_patches, TP.extract_patches, *args)
+    got = _launched(TP.extract_patches, TP.extract_patches_levels, *args)
     assert torch.equal(got, TP.extract_patches_plain(*args))
+
+
+def test_patch_levels_kernel_matches_plain_at_the_level_shapes():
+    """One launch for the 8 KITTI levels (376x1241 ... 106x346, K 256 / 128),
+    corner origins included."""
+    dev = cuda_device()
+    rng = np.random.RandomState(1)
+    levels = pyramid(t(rng.uniform(0, 255, (H, W)).astype(np.float32), dev), VOConfig.kitti().orb)
+    assert [tuple(x.shape) for x in levels[::7]] == [(376, 1241), (106, 346)]
+    ys, xs, counts = [], [], []
+    for img in levels:
+        h, w = img.shape
+        K = 256 if h > 200 else 128
+        y0 = rng.randint(0, h - 31 + 1, K).astype(np.int32)
+        x0 = rng.randint(0, w - 31 + 1, K).astype(np.int32)
+        y0[:2], x0[:2] = [0, h - 31], [w - 31, 0]
+        ys.append(y0)
+        xs.append(x0)
+        counts.append(K)
+    args = (levels, t(np.concatenate(ys), dev), t(np.concatenate(xs), dev), counts, 15)
+    got = _launched(TP.extract_patches_levels, TP.extract_patches_levels, *args)
+    assert got.shape == (sum(counts), 31, 31) and sum(counts) == 1536
+    assert torch.equal(got, TP.extract_patches_levels_plain(*args))
 
 
 def test_stereo_kernel_matches_plain():
@@ -146,11 +169,42 @@ def test_sgm_kernel_matches_plain(shape, case):
     scale = 0.5 if case == "half" else 1.0
     planes = (None, None) if case == "scalar" else (ph * scale, pv * scale)
     args = (vol, 1.0 * scale, 8.0 * scale, *planes)
-    before = TG.sgm_aggregate.launches
+    before = TG.sgm_aggregate_batch.launches  # sgm_aggregate counts there
     got = TG.sgm_aggregate(*args)
     torch.cuda.synchronize()
-    assert TG.sgm_aggregate.launches == before + 4
+    assert TG.sgm_aggregate_batch.launches == before + 2
     assert torch.equal(got, TG.sgm_aggregate_plain(*args))
+
+
+@pytest.mark.parametrize("D", [1, 33, 48, 64])
+def test_sgm_batch_kernel_matches_plain(D):
+    """Two volumes in the same two launches, one with P2 planes and one
+    without, bit-equal to one plain aggregation each."""
+    dev = cuda_device()
+    rng = np.random.RandomState(D)
+    shape = (23, 71, D)
+    vols = [t(rng.uniform(0, 3, shape).astype(np.float32), dev) for _ in range(2)]
+    ph, pv = (t(rng.uniform(1, 8, shape[:2]).astype(np.float32), dev) for _ in range(2))
+    before = TG.sgm_aggregate_batch.launches
+    got = TG.sgm_aggregate_batch(vols, 1.0, 8.0, [ph, None], [pv, None])
+    torch.cuda.synchronize()
+    assert TG.sgm_aggregate_batch.launches == before + 2
+    assert torch.equal(got[0], TG.sgm_aggregate_plain(vols[0], 1.0, 8.0, ph, pv))
+    assert torch.equal(got[1], TG.sgm_aggregate_plain(vols[1], 1.0, 8.0))
+
+
+def test_sgm_kernel_min_key_on_signed_zeros_negatives_and_large_costs():
+    """prev_min is a min over uint32 keys of the floats: -0.0 against 0.0,
+    negative costs and costs near 1e20 keep their order."""
+    dev = cuda_device()
+    rng = np.random.RandomState(5)
+    vol = rng.choice(np.array([-0.0, 0.0, 1.0, -3.5, 2.5e19, 1e20], np.float32), (17, 39, 48))
+    vol[:, :, :5] = -0.0
+    args = (t(vol, dev), 1.0, 8.0, None, t(rng.uniform(0, 8, (17, 39)).astype(np.float32), dev))
+    got = TG.sgm_aggregate(*args)
+    want = TG.sgm_aggregate_plain(*args)
+    assert bool(torch.isfinite(want).all())
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("ths", [(20.0, 7.0), (20.0,)])
@@ -263,7 +317,7 @@ def test_dense_track_step_and_refine_read_nothing_back():
     for i in range(1, 4):
         state, _ = TT.track_step(state, TT.FrameInput(*(t(a, dev) for a in src(i)), boxes, bv), cfg)
     frame = TT.FrameInput(*(t(a, dev) for a in src(4)), boxes, bv)
-    launches = TG.sgm_aggregate.launches, TB.local_ba_blocks.launches
+    launches = TG.sgm_aggregate_batch.launches, TB.local_ba_blocks.launches
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -272,7 +326,7 @@ def test_dense_track_step_and_refine_read_nothing_back():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(out.pnp_ok) and int(out.n_stereo) > 50
-    assert TG.sgm_aggregate.launches == launches[0] + 12
+    assert TG.sgm_aggregate_batch.launches == launches[0] + 4  # left + right, then refine
     assert TB.local_ba_blocks.launches == launches[1] + cfg.ba.local_iterations
 
 
