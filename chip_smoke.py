@@ -25,8 +25,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    per frame.
 
 Each kernel's line entry carries its time and its plain version's (CUDA
-events, wrapper included), its device time alone (``device_ms``: the
-profiler's durations of its CUDA kernels), the least time the card could take for the same work (``bound_ms``:
+events, wrapper included; for the two BA builds beside ``step_ms``, a
+step of the build an LM loop binds once), its
+device time alone (``device_ms``: the profiler's durations of its CUDA
+kernels), the least time the card could take for the same work (``bound_ms``:
 the bytes it must move at 3.35 TB/s or its operations at the card's peak
 rate for their type, whichever is larger, from this run's shapes) and, where
 one PyTorch call computes the same function, that call's time
@@ -118,23 +120,34 @@ def median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, names: tuple[str, ...], reps: int = 20) -> float:
+def device_ms(fn, names: tuple[str, ...], reps: int = 20, only: bool = False) -> float:
     """Device time per call of ``fn()`` spent in the kernels whose names hold
     one of ``names``: their durations from ``torch.profiler`` (CUPTI), so
-    without the wrapper's host time, which the CUDA-event median includes."""
+    without the wrapper's host time, which the CUDA-event median includes.
+    With ``only``, ``fn()`` must run nothing else on the device: one kernel
+    of ``names`` a call, no other kernel, copy or fill."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, seen = 0.0, set()
-    for e in prof.key_averages():
-        hit = [n for n in names if n in e.key]
-        if hit:
-            seen.update(hit)
-            total += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+    for _ in range(3):  # now and then the profiler hands back an empty window: take another
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, seen = 0.0, set()
+        for e in prof.key_averages():
+            hit = [n for n in names if n in e.key]
+            if hit:
+                seen.update(hit)
+                total += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+        if seen == set(names) and total > 0:
+            break
     check(seen == set(names) and total > 0, f"profiler saw {sorted(seen)} of the kernels {list(names)}")
+    if only:  # the profiler may drop an event of the window, never add one
+        device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        others = sorted({d for d in device if not any(n in d for n in names)})
+        check(not others and 0 < len(device) <= reps,
+              f"expected one kernel of {list(names)} a call, saw {len(device)} device events in {reps} calls "
+              f"(others: {others})")
     return total / 1e3 / reps
 
 
@@ -383,15 +396,24 @@ def local_ba_problem(cam_cfg, dev, F=4, L=2048, seed=0):
 
 
 def compare_local_ba(cfg, dev) -> dict:
-    """B7 at the window's shape: F=4 poses, L=2048 landmarks, stereo row."""
+    """B7 at the window's shape: F=4 poses, L=2048 landmarks, stereo row;
+    the bound build a ``local_ba`` step makes against one-shot calls and the
+    plain build; one ``local_ba`` (5 LM steps) timed with either build."""
     from stereo_semantic_vo_tpu_torch.core.camera import Camera
-    from stereo_semantic_vo_tpu_torch.kernels.ba_hessian import local_ba_blocks, local_ba_blocks_plain
+    from stereo_semantic_vo_tpu_torch.kernels.ba_hessian import (
+        LocalBABuild,
+        local_ba_blocks,
+        local_ba_blocks_plain,
+    )
+    from stereo_semantic_vo_tpu_torch.ops.local_ba import local_ba
 
     cam = Camera.from_config(cfg.camera, dev)
     poses, X, obs, mask, ur, rm = local_ba_problem(cfg.camera, dev, cfg.window.window_frames, cfg.window.max_map_points)
     args = (poses, X, obs, mask, cam, cfg.ba.huber_delta, ur, rm)
+    step_build = LocalBABuild(obs, mask, cam, cfg.ba.huber_delta, ur, rm)
     got = local_ba_blocks(*args)
     again = local_ba_blocks(*args)
+    steps = [step_build(poses, X), step_build(poses, X)]
     want = local_ba_blocks_plain(*args)
     torch.cuda.synchronize()
     err = 0.0
@@ -402,23 +424,36 @@ def compare_local_ba(cfg, dev) -> dict:
         err = max(err, float((a - b).abs().max()))
     check(torch.allclose(got[5], want[5], rtol=BA_COST_RTOL, atol=0.0),
           f"local-BA cost {float(got[5])} vs plain {float(want[5])}")
-    check(all(torch.equal(a, b) for a, b in zip(got, again)), "local-BA kernel is not deterministic")
+    check(all(torch.equal(a, b) for x in (again, *steps) for a, b in zip(got, x)),
+          "local-BA kernel is not deterministic (one-shot calls and a bound build's steps)")
     ms = median_ms(lambda: local_ba_blocks(*args))
-    dev_ms = device_ms(lambda: local_ba_blocks(*args), ("local_ba_blocks_kernel", "local_ba_finalize_kernel"))
+    step_ms = median_ms(lambda: step_build(poses, X))
+    dev_ms = device_ms(lambda: step_build(poses, X), ("local_ba_blocks_kernel",), only=True)
     plain_ms = median_ms(lambda: local_ba_blocks_plain(*args))
-    say(f"local-BA blocks: F=4, L=2048 with the stereo row within rtol {BA_RTOL} / atol {BA_ATOL_REL} x max "
-        f"(max abs err {err:.4g}), cost within rtol {BA_COST_RTOL}, two runs bit-equal; per build "
-        f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
     F, L = mask.shape
-    # poses, points, observations, mask, u_R and its mask, intrinsics in;
-    # Hcc, Hcp, Hpp, gc, gp, cost out; ~600 flops per (frame, landmark)
-    nbytes = 4 * (16 * F + 3 * L + 5 * F * L + 5) + 4 * (36 * F + 18 * F * L + 9 * L + 6 * F + 3 * L + 1)
+    X0 = X + 0.1
+    valid = torch.ones(L, dtype=torch.bool, device=dev)
+    lm = {}
+    for backend in ("pallas", "xla"):
+        bcfg = dataclasses.replace(cfg.ba, local_hessian_backend=backend)
+        lm[backend] = median_ms(lambda: local_ba(poses, X0, obs, mask, valid, cam, bcfg, obs_ur=ur, obs_r_mask=rm),
+                                reps=20, warmup=2)
+    say(f"local-BA blocks: F=4, L=2048 with the stereo row within rtol {BA_RTOL} / atol {BA_ATOL_REL} x max "
+        f"(max abs err {err:.4g}), cost within rtol {BA_COST_RTOL}, one-shot calls and a bound build's steps "
+        f"bit-equal; per build {ms:.4f} ms one-shot ({step_ms:.4f} ms a step of the bound build, {dev_ms:.4f} ms "
+        f"on the device, one kernel), {plain_ms:.4f} ms plain; one local_ba ({cfg.ba.local_iterations} LM steps) "
+        f"{lm['pallas']:.3f} ms with the kernel, {lm['xla']:.3f} ms with the plain build")
+    # poses, points, observations, u_R, intrinsics (float32) and the two
+    # masks (bool) in; Hcc, Hcp, Hpp, gc, gp, cost out; ~600 flops per
+    # (frame, landmark)
+    nbytes = 4 * (16 * F + 3 * L + 3 * F * L + 5) + 2 * F * L + 4 * (36 * F + 18 * F * L + 9 * L + 6 * F + 3 * L + 1)
     return {"name": "local_ba_blocks", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/ba_hessian.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/ba_hessian.py:270",
-            "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "step_ms": step_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             **bound(nbytes, 600.0 * F * L),
-            "library_ms": None}
+            "library_ms": None,
+            "local_ba_ms": lm}
 
 
 def compare_fast(cfg, dev) -> dict:
@@ -477,10 +512,12 @@ def motion_problem(cam_cfg, dev, K=512, seed=0, noise=0.4):
 
 
 def compare_motion_hessian(cfg, dev) -> dict:
-    """B5 at K=512: within tests/test_ba_hessian.py's bounds, deterministic;
-    one call and one motion_only_ba (10 calls) timed."""
+    """B5 at K=512: within tests/test_ba_hessian.py's bounds, deterministic,
+    the bound build a ``motion_only_ba`` step makes equal to one-shot calls;
+    one step and one motion_only_ba (10 calls) timed."""
     from stereo_semantic_vo_tpu_torch.core.camera import Camera
     from stereo_semantic_vo_tpu_torch.kernels.ba_hessian import (
+        MotionBuild,
         motion_hessian_gradient,
         motion_hessian_gradient_plain,
         motion_intrinsics,
@@ -490,10 +527,13 @@ def compare_motion_hessian(cfg, dev) -> dict:
     cam = Camera.from_config(cfg.camera, dev)
     T0, X, uv, mask = motion_problem(cfg.camera, dev)
     K = X.shape[0]
-    args = (T0, X.T.contiguous(), uv.T.contiguous(), mask.to(torch.float32)[None], motion_intrinsics(cam),
-            cfg.ba.huber_delta)
+    operands = (X.T.contiguous(), uv.T.contiguous(), mask.to(torch.float32)[None], motion_intrinsics(cam),
+                cfg.ba.huber_delta)
+    args = (T0, *operands)
+    step_build = MotionBuild(*operands)
     got = motion_hessian_gradient(*args)
     again = motion_hessian_gradient(*args)
+    step = [x.clone() for x in step_build(T0)]
     want = motion_hessian_gradient_plain(*args)
     torch.cuda.synchronize()
     err = 0.0
@@ -504,17 +544,20 @@ def compare_motion_hessian(cfg, dev) -> dict:
         err = max(err, float((a - b).abs().max()))
     check(torch.allclose(got[2], want[2], rtol=MH_COST_RTOL, atol=0.0),
           f"motion build cost {float(got[2])} vs plain {float(want[2])}")
-    check(all(torch.equal(a, b) for a, b in zip(got, again)), "motion build kernel is not deterministic")
+    check(all(torch.equal(a, b) for x in (again, step) for a, b in zip(got, x)),
+          "motion build kernel is not deterministic (one-shot calls and a bound build's step)")
     ms = median_ms(lambda: motion_hessian_gradient(*args))
-    dev_ms = device_ms(lambda: motion_hessian_gradient(*args), ("motion_hessian_kernel",))
+    step_ms = median_ms(lambda: step_build(T0))
+    dev_ms = device_ms(lambda: step_build(T0), ("motion_hessian_kernel",), only=True)
     plain_ms = median_ms(lambda: motion_hessian_gradient_plain(*args))
     lm = {}
     for backend in ("pallas", "xla"):
         bcfg = dataclasses.replace(cfg.ba, hessian_backend=backend, trim_px=10.0)
         lm[backend] = median_ms(lambda: motion_only_ba(T0, X, uv, mask, cam, bcfg), reps=20, warmup=2)
     say(f"motion build: K={K} within rtol {MH_RTOL} / atol {MH_ATOL_REL} x max (max abs err {err:.4g}), "
-        f"cost within rtol {MH_COST_RTOL}, two runs bit-equal; per build {ms:.4f} ms kernel, {plain_ms:.4f} ms "
-        f"plain; one motion_only_ba (10 LM steps, trim 10 px) {lm['pallas']:.3f} ms with the kernel, "
+        f"cost within rtol {MH_COST_RTOL}, one-shot calls and a bound build's step bit-equal; per call {ms:.4f} ms "
+        f"one-shot ({step_ms:.4f} ms a step of the bound build, {dev_ms:.4f} ms on the device, one kernel), "
+        f"{plain_ms:.4f} ms plain; one motion_only_ba (10 LM steps, trim 10 px) {lm['pallas']:.3f} ms with the kernel, "
         f"{lm['xla']:.3f} ms with the einsum build")
     # pose, points, observations, mask, intrinsics in; H, g, cost out;
     # ~230 flops an observation
@@ -522,7 +565,8 @@ def compare_motion_hessian(cfg, dev) -> dict:
     return {"name": "motion_hessian_gradient", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/ba_hessian.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/ba_hessian.py:115",
-            "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound(nbytes, 230.0 * K),
+            "max_abs_err": err, "ms": ms, "step_ms": step_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            **bound(nbytes, 230.0 * K),
             "library_ms": None,
             "motion_only_ba_ms": lm}
 

@@ -14,6 +14,12 @@ Ports of ``stereo_semantic_vo_tpu.kernels.ba_hessian``; both kernels are in
   contract.  The plain version is the reference's einsum build over the
   materialised (F, L, C, 6) / (F, L, C, 3) Jacobians.
 
+Both sit in LM loops that pass the same observations every step.
+``MotionBuild`` and ``LocalBABuild`` check and bind those once per loop, so
+that a step checks only the pose (and points), allocates at most one
+output buffer and makes one ctypes call: one launch, nothing staged.  The
+public functions are one-shot uses of them.
+
 Kernel and plain version sum in different orders, so they agree to float
 tolerance, the reference's own kernel test's (tests/test_ba_hessian.py):
 the motion build within rtol 2e-5 and atol 1e-6 x max|plain|, the local
@@ -23,13 +29,15 @@ blocks within rtol 3e-5 and atol 1e-4 x max|plain|, the cost within rtol
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from stereo_semantic_vo_tpu_torch.core import lie
 from stereo_semantic_vo_tpu_torch.kernels import build
 from stereo_semantic_vo_tpu_torch.ops.ba import huber_weights
 
-MAX_FRAMES = 36  # the finalize launch runs one thread per (frame, entry), 28 a frame
+LOCAL_BA_TILE = 64  # landmarks a block of the local-BA kernel takes (csrc/ba_hessian.cu)
 
 
 def _project(poses, points, cam):
@@ -103,6 +111,38 @@ def motion_intrinsics(cam) -> torch.Tensor:
     return torch.stack([cam.fx, cam.fy, cam.cx, cam.cy]).to(torch.float32)
 
 
+def local_intrinsics(cam) -> torch.Tensor:
+    """[fx, fy, cx, cy, bf] as one (5,) float32 tensor on the camera's
+    device, for the local-BA kernel.  Made once per ``local_ba`` call."""
+    return torch.stack([cam.fx, cam.fy, cam.cx, cam.cy, cam.bf]).to(torch.float32)
+
+
+def _check_step(t, name: str, shape: tuple, index: int) -> None:
+    """A step's moving operand: cheap attribute reads only."""
+    if not (t.is_cuda and t.dtype is torch.float32 and t.shape == shape and t.is_contiguous()
+            and t.get_device() == index):
+        raise ValueError(f"{name}: expected a contiguous float32 {shape} tensor on cuda:{index}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _launcher(name: str, index: int):
+    """-> launch(*args): the C entry point ``name``, called on device
+    ``index``: under a device guard only where another device is current,
+    which each call checks with one integer comparison."""
+    fn = build.library().function(name)
+
+    def launch(*args):
+        if torch.cuda.current_device() == index:
+            rc = fn(*args)
+        else:
+            with torch.cuda.device(index):
+                rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
+
+    return launch
+
+
 def motion_hessian_gradient_plain(T_cw, Xt, uvt, maskf, intr, delta):
     """-> (H (6,6), g (6,), cost ()) of the Pallas body's arithmetic."""
     fx, fy, cx, cy = intr.unbind()
@@ -131,34 +171,54 @@ def motion_hessian_gradient_plain(T_cw, Xt, uvt, maskf, intr, delta):
     return H, g, torch.sum(rho)
 
 
+class MotionBuild:
+    """B5 bound to one ``motion_only_ba`` call: ``Xt`` (3,K), ``uvt`` (2,K),
+    ``maskf`` (1,K) float32 {0, 1} and ``intr`` (``motion_intrinsics``)
+    are checked once and kept by pointer; ``build(T_cw)`` -> (H (6,6),
+    g (6,), cost ()) for a (4,4) pose.
+
+    On the card every call launches the kernel once into the same 43-float
+    buffer and returns the same views of it, so a step's results are valid
+    until the next call is enqueued.  CPU tensors take the plain version."""
+
+    def __init__(self, Xt, uvt, maskf, intr, delta: float):
+        self._plain = Xt.device.type == "cpu"
+        if self._plain:
+            self._args = (Xt, uvt, maskf, intr, delta)
+            return
+        f32 = torch.float32
+        K = Xt.shape[-1]
+        build.check_cuda(Xt, "Xt", f32, (3, K))
+        build.check_cuda(uvt, "uvt", f32, (2, K))
+        build.check_cuda(maskf, "maskf", f32, (1, K))
+        build.check_cuda(intr, "intr", f32, (4,))
+        self._index = Xt.get_device()
+        if any(x.get_device() != self._index for x in (uvt, maskf, intr)):
+            raise ValueError("all tensors must be on one device")
+        self._launch = _launcher("ssvo_motion_hessian_gradient", self._index)
+        self._out = torch.empty(43, dtype=f32, device=Xt.device)
+        self._views = (self._out[:36].view(6, 6), self._out[36:42], self._out[42])
+        self._keep = (Xt, uvt, maskf, intr)  # the kernel reads them by pointer
+        self._head = (Xt.data_ptr(), uvt.data_ptr(), maskf.data_ptr(), intr.data_ptr(), K,
+                      ctypes.c_float(delta), self._out.data_ptr())
+
+    def __call__(self, T_cw):
+        if self._plain:
+            return motion_hessian_gradient_plain(T_cw, *self._args)
+        _check_step(T_cw, "T_cw", (4, 4), self._index)
+        self._launch(T_cw.data_ptr(), *self._head, build.stream_handle(T_cw))
+        motion_hessian_gradient.launches += 1
+        return self._views
+
+
 def motion_hessian_gradient(T_cw, Xt, uvt, maskf, intr, delta):
     """The fused H / g / cost build of :func:`motion_hessian_gradient_plain`.
     T_cw (4,4), Xt (3,K), uvt (2,K), maskf (1,K) float32 {0, 1}; ``intr`` is
-    ``motion_intrinsics(cam)``, which an LM loop stacks once, so that each
-    step is one allocation and one launch.
+    ``motion_intrinsics(cam)``.  One-shot: a fresh ``MotionBuild`` (an LM
+    loop keeps one), so the result is a fresh 43-float buffer's views.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    The kernel's H, g and cost are views of one 43-float buffer."""
-    if T_cw.device.type == "cpu":
-        return motion_hessian_gradient_plain(T_cw, Xt, uvt, maskf, intr, delta)
-    f32 = torch.float32
-    K = Xt.shape[-1]
-    build.check_cuda(T_cw, "T_cw", f32, (4, 4))
-    build.check_cuda(Xt, "Xt", f32, (3, K))
-    build.check_cuda(uvt, "uvt", f32, (2, K))
-    build.check_cuda(maskf, "maskf", f32, (1, K))
-    build.check_cuda(intr, "intr", f32, (4,))
-    if len({x.device for x in (T_cw, Xt, uvt, maskf, intr)}) != 1:
-        raise ValueError("all tensors must be on one device")
-    lib = build.library()
-    out = torch.empty(43, dtype=f32, device=T_cw.device)
-    with torch.cuda.device(T_cw.device):
-        lib.call(
-            "ssvo_motion_hessian_gradient", T_cw.data_ptr(), Xt.data_ptr(), uvt.data_ptr(),
-            maskf.data_ptr(), intr.data_ptr(), K, float(delta), out.data_ptr(), build.stream_handle(T_cw),
-        )
-    motion_hessian_gradient.launches += 1
-    return out[:36].view(6, 6), out[36:42], out[42]
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    return MotionBuild(Xt, uvt, maskf, intr, delta)(T_cw)
 
 
 motion_hessian_gradient.launches = 0
@@ -179,58 +239,85 @@ def local_ba_blocks_plain(poses, points, obs_uv, obs_mask, cam, huber_delta, obs
     return Hcc, Hcp, Hpp, gc, gp, cost
 
 
+_PARTIAL_ENTRIES = 28  # a block's pose entries a frame: 21 Hcc, 6 gc, the cost
+
+
+class LocalBABuild:
+    """B7 bound to one ``local_ba`` call: the observations ``obs_uv``
+    (F,L,2) float32, ``obs_mask`` (F,L) bool, optional ``obs_ur`` (F,L)
+    float32 with ``obs_r_mask`` (F,L) bool, and the camera are checked
+    once and kept by pointer, with the (5,) intrinsics and one zeroed
+    buffer for the per-block partials and the last-block ticket made once.
+    ``build(poses, points)`` -> (Hcc (F,6,6), Hcp (F,L,6,3), Hpp (L,3,3),
+    gc (F,6), gp (L,3), cost ()) for poses (F,4,4) and points (L,3): views
+    of one fresh buffer, filled by one launch.  Every launch leaves the
+    ticket at zero; the partials and ticket are the object's, so its builds
+    run on one stream, in order, as an LM loop makes them.
+
+    A missing ``obs_r_mask`` counts every stereo row, as the reference
+    kernel's caller does.  CPU tensors take the plain version."""
+
+    def __init__(self, obs_uv, obs_mask, cam, huber_delta: float, obs_ur=None, obs_r_mask=None):
+        stereo = obs_ur is not None
+        if stereo and obs_r_mask is None:
+            obs_r_mask = torch.ones_like(obs_mask)
+        F, L = self.F, self.L = obs_mask.shape
+        self._plain = obs_mask.device.type == "cpu"
+        if self._plain:
+            self._args = (obs_uv, obs_mask, cam, huber_delta, obs_ur, obs_r_mask)
+            return
+        f32 = torch.float32
+        intr = local_intrinsics(cam)
+        build.check_cuda(obs_uv, "obs_uv", f32, (F, L, 2))
+        build.check_cuda(obs_mask, "obs_mask", torch.bool, (F, L))
+        build.check_cuda(intr, "camera", f32, (5,))
+        if obs_uv.data_ptr() % 8:
+            raise ValueError("obs_uv: the kernel reads (u, v) pairs as 8-byte float2")
+        if stereo:
+            build.check_cuda(obs_ur, "obs_ur", f32, (F, L))
+            build.check_cuda(obs_r_mask, "obs_r_mask", torch.bool, (F, L))
+        invariant = [obs_uv, obs_mask, intr] + ([obs_ur, obs_r_mask] if stereo else [])
+        self._index = obs_mask.get_device()
+        if any(x.get_device() != self._index for x in invariant):
+            raise ValueError("all tensors must be on one device")
+        self._launch = _launcher("ssvo_local_ba_blocks", self._index)
+        self._device = obs_mask.device
+        # one zeroed buffer: the per-block partials, then the ticket (a word
+        # whose zero bits are the uint32 0)
+        n_partial = max(1, -(-L // LOCAL_BA_TILE)) * F * _PARTIAL_ENTRIES
+        self._scratch = torch.zeros(n_partial + 1, dtype=f32, device=self._device)
+        scratch = self._scratch.data_ptr()
+        self._tail = (scratch, scratch + 4 * n_partial)
+        self._keep = invariant  # the kernel reads them by pointer
+        self._head = (obs_uv.data_ptr(), obs_mask.data_ptr(), obs_ur.data_ptr() if stereo else None,
+                      obs_r_mask.data_ptr() if stereo else None, intr.data_ptr(), F, L,
+                      ctypes.c_float(huber_delta))
+        self._sizes = (36 * F, 18 * F * L, 9 * L, 6 * F, 3 * L, 1)
+        self._shapes = ((F, 6, 6), (F, L, 6, 3), (L, 3, 3), (F, 6), (L, 3), ())
+        self._n_out = sum(self._sizes)
+
+    def __call__(self, poses, points):
+        if self._plain:
+            return local_ba_blocks_plain(poses, points, *self._args)
+        _check_step(poses, "poses", (self.F, 4, 4), self._index)
+        _check_step(points, "points", (self.L, 3), self._index)
+        out = torch.empty(self._n_out, dtype=torch.float32, device=self._device)
+        self._launch(poses.data_ptr(), points.data_ptr(), *self._head, out.data_ptr(), *self._tail,
+                     build.stream_handle(poses))
+        local_ba_blocks.launches += 1
+        return tuple(x.view(shape) for x, shape in zip(out.split(self._sizes), self._shapes))
+
+
 def local_ba_blocks(poses, points, obs_uv, obs_mask, cam, huber_delta, obs_ur=None, obs_r_mask=None):
     """The block build of :func:`local_ba_blocks_plain`'s contract.  poses
     (F,4,4), points (L,3), obs_uv (F,L,2) float32; obs_mask (F,L) bool;
     ``obs_ur`` (F,L) float32 and ``obs_r_mask`` (F,L) bool add the stereo row.
+    One-shot: a fresh ``LocalBABuild`` (an LM loop keeps one).
 
     A missing ``obs_r_mask`` counts every stereo row, as the reference
     kernel's caller does.  CPU tensors take the plain version; CUDA tensors
     launch the kernel."""
-    stereo = obs_ur is not None
-    if stereo and obs_r_mask is None:
-        obs_r_mask = torch.ones_like(obs_mask)
-    if poses.device.type == "cpu":
-        return local_ba_blocks_plain(poses, points, obs_uv, obs_mask, cam, huber_delta, obs_ur, obs_r_mask)
-    F, L = obs_mask.shape
-    if not 1 <= F <= MAX_FRAMES:
-        raise ValueError(f"the local-BA kernel takes 1 <= F <= {MAX_FRAMES} poses, got {F}")
-    f32 = torch.float32
-    intr = torch.stack([cam.fx, cam.fy, cam.cx, cam.cy, cam.bf]).to(f32)
-    maskf = obs_mask.to(f32)
-    rmf = obs_r_mask.to(f32) if stereo else None
-    build.check_cuda(poses, "poses", f32, (F, 4, 4))
-    build.check_cuda(points, "points", f32, (L, 3))
-    build.check_cuda(obs_uv, "obs_uv", f32, (F, L, 2))
-    build.check_cuda(maskf, "obs_mask", f32, (F, L))
-    build.check_cuda(intr, "camera", f32, (5,))
-    if stereo:
-        build.check_cuda(obs_ur, "obs_ur", f32, (F, L))
-        build.check_cuda(rmf, "obs_r_mask", f32, (F, L))
-    tensors = [poses, points, obs_uv, maskf, intr] + ([obs_ur, rmf] if stereo else [])
-    if len({x.device for x in tensors}) != 1:
-        raise ValueError("all tensors must be on one device")
-    lib = build.library()
-    dev = poses.device
-    n_blocks = -(-L // 128)
-    Hcc = torch.empty((F, 6, 6), dtype=f32, device=dev)
-    Hcp = torch.empty((F, L, 6, 3), dtype=f32, device=dev)
-    Hpp = torch.empty((L, 3, 3), dtype=f32, device=dev)
-    gc = torch.empty((F, 6), dtype=f32, device=dev)
-    gp = torch.empty((L, 3), dtype=f32, device=dev)
-    cost = torch.empty((), dtype=f32, device=dev)
-    partial = torch.empty((max(n_blocks, 1), F, 28), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        lib.call(
-            "ssvo_local_ba_blocks",
-            poses.data_ptr(), points.data_ptr(), obs_uv.data_ptr(), maskf.data_ptr(),
-            obs_ur.data_ptr() if stereo else None, rmf.data_ptr() if stereo else None,
-            intr.data_ptr(), F, L, float(huber_delta),
-            Hcc.data_ptr(), Hcp.data_ptr(), Hpp.data_ptr(), gc.data_ptr(), gp.data_ptr(),
-            cost.data_ptr(), partial.data_ptr(), build.stream_handle(poses),
-        )
-    local_ba_blocks.launches += 1
-    return Hcc, Hcp, Hpp, gc, gp, cost
+    return LocalBABuild(obs_uv, obs_mask, cam, huber_delta, obs_ur, obs_r_mask)(poses, points)
 
 
 local_ba_blocks.launches = 0

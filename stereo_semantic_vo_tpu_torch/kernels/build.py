@@ -40,7 +40,7 @@ SIGNATURES = {
     ],
     "ssvo_fused_best_match": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "ssvo_sgm_aggregate": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P],
-    "ssvo_local_ba_blocks": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],
+    "ssvo_local_ba_blocks": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P],
     "ssvo_fast_scores": [_P, _I, _I, _I, _F, _F, _P, _P],
     "ssvo_motion_hessian_gradient": [_P, _P, _P, _P, _P, _I, _F, _P, _P],
     "ssvo_hamming_distance_matrix": [_P, _P, _I, _I, _P, _P],
@@ -64,6 +64,12 @@ class KernelLibrary:
         rc = getattr(self._dll, name)(*args)
         if rc != 0:
             raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
+
+    def function(self, name: str):
+        """The C entry point ``name``, looked up once, for a wrapper that
+        launches it in a loop: it returns the ``cudaError_t``, which the
+        caller checks."""
+        return getattr(self._dll, name)
 
 
 _library: KernelLibrary | None = None

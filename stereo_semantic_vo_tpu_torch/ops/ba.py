@@ -104,11 +104,11 @@ def motion_only_ba(
         urm = ur_mask.to(torch.float32) if ur_mask is not None else torch.ones_like(ur)
     if fused:
         # imported here: kernels/ba_hessian imports this module.  The
-        # transposed operands and the intrinsics are made once per call;
-        # the trim classification is already folded into m.
-        from stereo_semantic_vo_tpu_torch.kernels.ba_hessian import motion_hessian_gradient, motion_intrinsics
+        # transposed operands and the intrinsics are made, checked and bound
+        # once per call; the trim classification is already folded into m.
+        from stereo_semantic_vo_tpu_torch.kernels.ba_hessian import MotionBuild, motion_intrinsics
 
-        Xt, uvt, intr, maskf = X_w.T.contiguous(), uv.T.contiguous(), motion_intrinsics(cam), m[None]
+        build = MotionBuild(X_w.T.contiguous(), uv.T.contiguous(), m[None], motion_intrinsics(cam), cfg.huber_delta)
 
     def stereo_residual(T):
         pc = lie.transform_points(T, X_w)
@@ -139,8 +139,11 @@ def motion_only_ba(
     for _ in range(cfg.iterations):
         if fused:
             # the kernel's cost goes unused, as in the reference: the accept
-            # test below compares robust_cost values
-            H, g, _ = motion_hessian_gradient(T.contiguous(), Xt, uvt, maskf, intr, cfg.huber_delta)
+            # test below compares robust_cost values.  Every step's H and g
+            # are views of the same buffer: the ops that read them (Hl and
+            # the solve below) are enqueued on the stream before the next
+            # step's launch, which writes the buffer only after they ran.
+            H, g, _ = build(T.contiguous())
         else:
             _, r, w_geom, r2 = robust_cost(T)
             w = w_geom * huber_weights(r2, cfg.huber_delta) if use_huber else w_geom

@@ -10,7 +10,9 @@ dense batched blocks
 
 built by ``kernels/ba_hessian.local_ba_blocks`` (``local_hessian_backend``
 "pallas": the CUDA kernel on a CUDA tensor) or its plain einsum version
-("xla"), and the landmark block is eliminated in closed form.  Gauge
+("xla"), and the landmark block is eliminated in closed form.  The LM loop
+binds the observations to the build once (``prepare_normal_equations``),
+so each step's build is one kernel launch.  Gauge
 freedom is fixed by a strong prior on pose 0.  Every accept/reject is a
 ``torch.where`` and the inverses are ``inv_ex`` / ``solve_ex``, so nothing
 reads back to the host.
@@ -27,7 +29,7 @@ from stereo_semantic_vo_tpu_torch.core.camera import Camera
 from stereo_semantic_vo_tpu_torch.core.config import BAConfig, resolve_backend
 from stereo_semantic_vo_tpu_torch.core.precision import f32_geometry
 from stereo_semantic_vo_tpu_torch.kernels.ba_hessian import (
-    local_ba_blocks,
+    LocalBABuild,
     local_ba_blocks_plain,
     robust_cost,
 )
@@ -50,6 +52,27 @@ class NormalEq(NamedTuple):
     cost: torch.Tensor
 
 
+def prepare_normal_equations(
+    obs_uv, obs_mask, cam: Camera, huber_delta: float, backend: str = "xla", obs_ur=None, obs_r_mask=None,
+):
+    """-> build(poses, points) -> NormalEq for observations that stay fixed
+    across calls.  ``backend`` "pallas": the block-build kernel with the
+    observations bound once (its plain version on a CPU tensor); "xla": the
+    plain einsum build."""
+    if obs_ur is not None:
+        obs_ur = obs_ur.contiguous()
+    if backend == "pallas":
+        blocks = LocalBABuild(obs_uv.contiguous(), obs_mask, cam, huber_delta, obs_ur, obs_r_mask)
+    else:
+        def blocks(poses, points):
+            return local_ba_blocks_plain(poses, points, obs_uv, obs_mask, cam, huber_delta, obs_ur, obs_r_mask)
+
+    def build(poses, points) -> NormalEq:
+        return NormalEq(*blocks(poses.contiguous(), points.contiguous()))
+
+    return build
+
+
 @f32_geometry
 def build_normal_equations(
     poses, points, obs_uv, obs_mask, cam: Camera, huber_delta: float,
@@ -57,11 +80,7 @@ def build_normal_equations(
 ) -> NormalEq:
     """``backend`` "pallas": the block-build kernel (its plain version on a
     CPU tensor); "xla": the plain einsum build."""
-    build = local_ba_blocks if backend == "pallas" else local_ba_blocks_plain
-    return NormalEq(*build(
-        poses.contiguous(), points.contiguous(), obs_uv.contiguous(), obs_mask, cam, huber_delta,
-        None if obs_ur is None else obs_ur.contiguous(), obs_r_mask,
-    ))
+    return prepare_normal_equations(obs_uv, obs_mask, cam, huber_delta, backend, obs_ur, obs_r_mask)(poses, points)
 
 
 def _damp(H: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
@@ -128,14 +147,12 @@ def local_ba(
     def total_cost(po, pt):
         return robust_cost(po, pt, obs_uv, obs_mask, cam, cfg.huber_delta, obs_ur, obs_r_mask)
 
+    build = prepare_normal_equations(obs_uv, obs_mask, cam, cfg.huber_delta, backend, obs_ur, obs_r_mask)
     po, pt = poses, points
     lam = torch.full((), cfg.init_lambda, dtype=torch.float32, device=poses.device)
     cost = total_cost(po, pt)
     for _ in range(cfg.local_iterations):
-        eq = build_normal_equations(
-            po, pt, obs_uv, obs_mask, cam, cfg.huber_delta,
-            backend=backend, obs_ur=obs_ur, obs_r_mask=obs_r_mask,
-        )
+        eq = build(po, pt)
         dx_c, dx_p = schur_solve(eq, lam, point_valid, fix_first_pose)
         po_new = lie.se3_exp(dx_c) @ po
         pt_new = pt + dx_p

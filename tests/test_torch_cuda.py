@@ -232,7 +232,7 @@ def test_orb_with_fast_kernel_equals_rolled_ring():
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("K", [512, 77, 0])
+@pytest.mark.parametrize("K", [512, 77, 0, 1, 255, 256, 257, 2048])
 def test_motion_hessian_kernel_matches_plain(K):
     dev = cuda_device()
     rng = np.random.RandomState(K)
@@ -255,7 +255,7 @@ def test_motion_hessian_kernel_matches_plain(K):
         torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6 * max(float(b.abs().max()), 1e-30), msg=name)
     torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
     again = TB.motion_hessian_gradient(*args)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: deterministic
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # a fixed summation order: deterministic
     assert torch.equal(got[0], got[0].T)
 
 
@@ -299,7 +299,152 @@ def test_local_ba_kernel_matches_plain(F, L, stereo):
         torch.testing.assert_close(a, b, rtol=3e-5, atol=1e-4 * max(float(b.abs().max()), 1.0), msg=name)
     torch.testing.assert_close(got[5], want[5], rtol=1e-5, atol=0)
     again = TB.local_ba_blocks(*args)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: deterministic
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # a fixed summation order: deterministic
+
+
+def _assert_blocks_close(got, want):
+    for name, a, b in zip(("Hcc", "Hcp", "Hpp", "gc", "gp"), got, want):
+        torch.testing.assert_close(a, b, rtol=3e-5, atol=1e-4 * max(float(b.abs().max()), 1.0), msg=name)
+    torch.testing.assert_close(got[5], want[5], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("F", [1, 4, 8, 36])
+@pytest.mark.parametrize("L", [1, 15, 16, 17, 33, 65, 2047, 2049])
+def test_local_ba_kernel_matches_plain_at_ragged_shapes(F, L):
+    """Warps and blocks cut by L on either side of 16, 32 and 64 landmarks,
+    and F past one round of frames; stereo on odd L.  Evaluated 0.2 m off the true
+    landmarks, as tests/test_ba_hessian.py evaluates off the true pose: at
+    the truth gc and gp are sums of pure noise that cancel below the
+    tolerance (with one frame, gp is one observation's three rows)."""
+    dev = cuda_device()
+    args = _ba_problem(dev, F, L, stereo=L % 2 == 1, seed=F + L)
+    args[1] = args[1] + 0.2
+    got = _launched(TB.local_ba_blocks, TB.local_ba_blocks, *args)
+    _assert_blocks_close(got, TB.local_ba_blocks_plain(*args))
+    again = TB.local_ba_blocks(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_local_ba_kernel_ticket_resets_between_builds():
+    """100 builds back to back on one stream, F and L changing from call to
+    call, one-shot builds between those of five bound builds, each with its
+    own ticket that every launch must leave at zero: each equals its shape's
+    first result bit for bit."""
+    dev = cuda_device()
+    shapes = [(4, 2048), (1, 17), (8, 517), (36, 100), (3, 2049)]
+    problems = [_ba_problem(dev, F, L, stereo=i % 2 == 0, seed=i) for i, (F, L) in enumerate(shapes)]
+    bound = [TB.LocalBABuild(obs, mask, cam, d, *rest) for _, _, obs, mask, cam, d, *rest in problems]
+    first = [TB.local_ba_blocks(*p) for p in problems]
+    for p, f in zip(problems, first):
+        _assert_blocks_close(f, TB.local_ba_blocks_plain(*p))
+    for i in range(100):
+        k = (3 * i) % len(shapes)
+        p = problems[k]
+        got = bound[k](p[0], p[1]) if i % 2 else TB.local_ba_blocks(*p)
+        assert all(torch.equal(a, b) for a, b in zip(got, first[k])), (i, shapes[k])
+
+
+def _device_events(fn):
+    """The device-side events (kernels, copies, fills) of one ``fn()``."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_bound_builds_launch_one_kernel_and_nothing_else():
+    dev = cuda_device()
+    poses, X, obs, mask, cam, delta, ur, rm = _ba_problem(dev, 4, 2048, True)
+    local = TB.LocalBABuild(obs, mask, cam, delta, ur, rm)
+    names = _device_events(lambda: local(poses, X))
+    assert len(names) == 1 and "local_ba_blocks_kernel" in names[0], names
+    K = 512
+    rng = np.random.RandomState(3)
+    Xt = t(np.stack([rng.uniform(-20, 20, K), rng.uniform(-5, 5, K), rng.uniform(5, 60, K)]).astype(np.float32), dev)
+    uvt = t(rng.uniform(0, 600, (2, K)).astype(np.float32), dev)
+    maskf = t((rng.rand(1, K) > 0.1).astype(np.float32), dev)
+    motion = TB.MotionBuild(Xt, uvt, maskf, TB.motion_intrinsics(cam), delta)
+    T = torch.eye(4, device=dev)
+    names = _device_events(lambda: motion(T))
+    assert len(names) == 1 and "motion_hessian_kernel" in names[0], names
+
+
+def test_bound_builds_launch_on_their_own_card_while_another_is_current():
+    """A build bound on the second card, called while the first is current,
+    launches on the second card and equals a step made with it current."""
+    cuda_device()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dev = torch.device("cuda", 1)
+    poses, X, obs, mask, cam, delta, ur, rm = _ba_problem(dev, 4, 2048, True, seed=5)
+    Xt, uvt = X[:512].T.contiguous(), obs[0, :512].T.contiguous()
+    maskf = mask[0, :512].to(torch.float32)[None]
+    local = TB.LocalBABuild(obs, mask, cam, delta, ur, rm)
+    motion = TB.MotionBuild(Xt, uvt, maskf, TB.motion_intrinsics(cam), delta)
+    with torch.cuda.device(1):
+        want = [x.clone() for x in (*local(poses, X), *motion(poses[1]))]
+    torch.cuda.synchronize(1)
+    with torch.cuda.device(0):
+        got = (*local(poses, X), *motion(poses[1]))
+    torch.cuda.synchronize(1)
+    assert all(x.device == dev and torch.equal(x, y) for x, y in zip(got, want))
+    _assert_blocks_close(got[:6], TB.local_ba_blocks_plain(poses, X, obs, mask, cam, delta, ur, rm))
+
+
+class _OneShotLocal:
+    """LocalBABuild's interface over fresh public calls, one a step."""
+
+    def __init__(self, *args, **kwargs):
+        self.args = args
+
+    def __call__(self, poses, points):
+        return TB.local_ba_blocks(poses, points, *self.args)
+
+
+class _OneShotMotion:
+    """MotionBuild's interface over a fresh build a step, as the public
+    call makes (which would find this class in place of MotionBuild)."""
+
+    build = TB.MotionBuild
+
+    def __init__(self, *args, **kwargs):
+        self.args = args
+
+    def __call__(self, T):
+        return self.build(*self.args)(T)
+
+
+def test_lm_loops_on_bound_builds_equal_loops_of_one_shot_calls(monkeypatch):
+    """local_ba (5 steps, stereo) and motion_only_ba (10 steps, trim 10 px)
+    give bit-equal results whether each step's build is the loop's bound
+    build or a fresh public call."""
+    from stereo_semantic_vo_tpu_torch.core.config import BAConfig
+    from stereo_semantic_vo_tpu_torch.ops import ba as ops_ba
+    from stereo_semantic_vo_tpu_torch.ops import local_ba as ops_local
+
+    dev = cuda_device()
+    poses, X, obs, mask, cam, delta, ur, rm = _ba_problem(dev, 4, 2048, True, seed=11)
+    X0 = X + 0.1
+    L = X.shape[0]
+    cfg = BAConfig(local_hessian_backend="pallas", hessian_backend="pallas", trim_px=10.0)
+
+    def run():
+        a = ops_local.local_ba(poses, X0, obs, mask, torch.ones(L, dtype=torch.bool, device=dev), cam, cfg,
+                               obs_ur=ur, obs_r_mask=rm)
+        b = ops_ba.motion_only_ba(poses[1], X, obs[1], mask[1], cam, cfg)
+        return (*a, *b)
+
+    launches = TB.local_ba_blocks.launches, TB.motion_hessian_gradient.launches
+    bound = run()
+    assert TB.local_ba_blocks.launches == launches[0] + cfg.local_iterations
+    assert TB.motion_hessian_gradient.launches == launches[1] + cfg.iterations
+    monkeypatch.setattr(ops_local, "LocalBABuild", _OneShotLocal)
+    monkeypatch.setattr(TB, "MotionBuild", _OneShotMotion)
+    one_shot = run()
+    for a, b in zip(bound, one_shot):
+        assert torch.equal(a, b)
 
 
 def test_dense_track_step_and_refine_read_nothing_back():
