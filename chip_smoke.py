@@ -122,10 +122,11 @@ def median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
 
 def device_ms(fn, names: tuple[str, ...], reps: int = 20, only: bool = False) -> float:
     """Device time per call of ``fn()`` spent in the kernels whose names hold
-    one of ``names``: their durations from ``torch.profiler`` (CUPTI), so
-    without the wrapper's host time, which the CUDA-event median includes.
-    With ``only``, ``fn()`` must run nothing else on the device: one kernel
-    of ``names`` a call, no other kernel, copy or fill."""
+    one of ``names``, or with ``names`` empty in every kernel, copy and fill
+    it runs: their durations from ``torch.profiler`` (CUPTI), so without the
+    wrapper's host time, which the CUDA-event median includes.  With
+    ``only``, ``fn()`` must run nothing else on the device: one kernel of
+    ``names`` a call, no other kernel, copy or fill."""
     fn()
     torch.cuda.synchronize()
     for _ in range(3):  # now and then the profiler hands back an empty window: take another
@@ -134,11 +135,15 @@ def device_ms(fn, names: tuple[str, ...], reps: int = 20, only: bool = False) ->
                 fn()
             torch.cuda.synchronize()
         total, seen = 0.0, set()
-        for e in prof.key_averages():
-            hit = [n for n in names if n in e.key]
-            if hit:
-                seen.update(hit)
-                total += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+        if names:
+            for e in prof.key_averages():
+                hit = [n for n in names if n in e.key]
+                if hit:
+                    seen.update(hit)
+                    total += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+        else:
+            total = sum((getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0))
+                        for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
         if seen == set(names) and total > 0:
             break
     check(seen == set(names) and total > 0, f"profiler saw {sorted(seen)} of the kernels {list(names)}")
@@ -297,12 +302,35 @@ def compare_matcher(cfg, dev, rng, popc_rate: float) -> dict:
         for name, g, w in zip(("idx", "best", "second"), got, want):
             check(torch.equal(g, w), f"matcher {name} differs at Q={Q}, T={T}")
         ms += median_ms(lambda: fused_best_match(*args))
-        dev_ms += device_ms(lambda: fused_best_match(*args), ("fused_best_match_kernel",))
+        dev_ms += device_ms(lambda: fused_best_match(*args), ("fused_best_match_kernel",), only=True)
         plain_ms += median_ms(lambda: fused_best_match_plain(*args))
         b = bound((Q + T) * 33 + 12 * Q, Q * T * 8, popc_rate)  # words and masks in, 3 ints out
         bound_ms += b["bound_ms"]
-    say(f"matcher: idx, best, second equal at Q=2048 and Q=512 against T={T}; "
-        f"per track_step {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
+    # the lanes' strided slices: ties across slices (rows 1, 2) and within
+    # one (rows T-33, T-1), every pair masked, sizes off the warp and tile
+    for Q, Te in ((2049, 517), (2049, 33), (1, 512), (70, 31), (70, 1)):
+        q = rng.randint(0, 2**32, (Q, 8), dtype=np.uint64).astype(np.uint32)
+        t = rng.randint(0, 2**32, (Te, 8), dtype=np.uint64).astype(np.uint32)
+        qv, tv = rng.rand(Q) > 0.2, rng.rand(Te) > 0.2
+        if Te >= 3:
+            t[2] = t[1]
+            q[0], qv[0], tv[1:3] = t[1], True, True
+        if Te > 32 and Q > 1:
+            t[Te - 1] = t[Te - 33]
+            q[1], qv[1], tv[Te - 33], tv[Te - 1] = t[Te - 1], True, True, True
+        for tmask in (tv, np.zeros(Te, bool)):
+            args = [torch.from_numpy(a.view(np.int32)).to(dev) for a in (q, t)] + [
+                torch.from_numpy(m).to(dev) for m in (qv, tmask)]
+            got, want = fused_best_match(*args), fused_best_match_plain(*args)
+            torch.cuda.synchronize()
+            for name, g, w in zip(("idx", "best", "second"), got, want):
+                check(torch.equal(g, w), f"matcher {name} differs at Q={Q}, T={Te} "
+                      f"({'all masked' if not tmask.any() else 'ties across and within slices'})")
+        check(bool((got[0] == 0).all() and (got[1] == 257).all() and (got[2] == 257).all()),
+              f"all-masked rows at Q={Q}, T={Te} must give (0, 257, 257)")
+    say(f"matcher: idx, best, second equal at Q=2048 and Q=512 against T={T}, and on ties across and within "
+        f"the lanes' slices and all-masked rows at (Q, T) = (2049, 517), (2049, 33), (1, 512), (70, 31), (70, 1); "
+        f"per track_step {ms:.4f} ms kernel ({dev_ms:.4f} ms on the device), {plain_ms:.4f} ms plain")
     return {"name": "fused_best_match", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/matcher.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/matcher.py:59",
@@ -456,37 +484,56 @@ def compare_local_ba(cfg, dev) -> dict:
             "local_ba_ms": lm}
 
 
-def compare_fast(cfg, dev) -> dict:
-    """B4 at the 8 level shapes of a real frame, both thresholds; then
+def compare_fast(cfg, dev, rng) -> dict:
+    """B4: one call for a frame's 8 levels (scores at both thresholds, the
+    border mask and the 3x3 NMS fused) bit-equal to its plain version at
+    every level, on a real frame's pyramid and on integer-valued textures
+    at the same shapes (integer scores: ties under the NMS); the raw
+    one-level scores (the TPU kernel's contract) bit-equal to theirs; then
     extract_orb with the kernel against the rolled ring."""
     from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
-    from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_scores, fast_scores_plain
+    from stereo_semantic_vo_tpu_torch.kernels.fast_score import (
+        fast_scores,
+        fast_scores_levels,
+        fast_scores_levels_plain,
+        fast_scores_plain,
+    )
     from stereo_semantic_vo_tpu_torch.ops.orb import extract_orb, pyramid
 
     oc = cfg.orb
-    ths = (float(oc.fast_threshold), float(oc.fast_min_threshold))
+    ths, b = (float(oc.fast_threshold), float(oc.fast_min_threshold)), oc.border
     levels = pyramid(torch.from_numpy(two_plane_frame_source(cfg.camera.height, cfg.camera.width)(3)[0]).to(dev), oc)
-    ms = dev_ms = plain_ms = nbytes = ops = 0.0
-    for img in levels:
-        got, want = fast_scores(img, ths), fast_scores_plain(img, ths)
+    shapes = [(H, W) for H, W, _ in pyramid_shapes(oc, cfg.camera.height, cfg.camera.width)]
+    check([tuple(x.shape) for x in levels] == shapes, f"pyramid shapes {[tuple(x.shape) for x in levels]}")
+    textures = [torch.from_numpy(np.round(rng.uniform(0, 255, s)).astype(np.float32)).to(dev) for s in shapes]
+    for name, lv in (("frame", levels), ("integer texture", textures)):
+        got, want = fast_scores_levels(lv, ths, b), fast_scores_levels_plain(lv, ths, b)
         torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            check(torch.equal(g, w), f"FAST scores differ at level shape {tuple(img.shape)}: "
+        for img, maps, plain in zip(lv, got, want):
+            for j, (g, w) in enumerate(zip(maps, plain)):
+                check(torch.equal(g, w), f"fused FAST maps differ ({name}, level shape {tuple(img.shape)}, "
+                      f"threshold {ths[j]}): max abs {float((g - w).abs().max())}")
+    for img in levels:
+        for g, w in zip(fast_scores(img, ths), fast_scores_plain(img, ths)):
+            check(torch.equal(g, w), f"raw FAST scores differ at level shape {tuple(img.shape)}: "
                   f"max abs {float((g - w).abs().max())}")
-        ms += median_ms(lambda: fast_scores(img, ths))
-        dev_ms += device_ms(lambda: fast_scores(img, ths), ("fast_scores_kernel",))
-        plain_ms += median_ms(lambda: fast_scores_plain(img, ths), reps=20, warmup=2)
-        # the image in, a score map per threshold out; 16 differences, then
-        # per threshold 32 subtractions, two 16-term sums and a max
-        nbytes += img.numel() * 4 * (1 + len(ths))
-        ops += img.numel() * (16 + 63 * len(ths))
+    torch.cuda.synchronize()
+    ms = median_ms(lambda: fast_scores_levels(levels, ths, b))
+    dev_ms = device_ms(lambda: fast_scores_levels(levels, ths, b), ("fast_scores_levels_kernel",), only=True)
+    plain_ms = median_ms(lambda: fast_scores_levels_plain(levels, ths, b), reps=20, warmup=2)
+    # each level read once, a map per threshold written; 16 differences,
+    # per threshold 32 subtractions, two 16-term sums and a max, then the
+    # NMS's 9 maxima and a compare
+    px = sum(img.numel() for img in levels)
+    nbytes, ops = px * 4 * (1 + len(ths)), px * (16 + 73 * len(ths))
     a = extract_orb(levels[0], dataclasses.replace(oc, fast_backend="pallas"))
-    b = extract_orb(levels[0], dataclasses.replace(oc, fast_backend="xla"))
-    for name, x, y in zip(a._fields, a, b):
+    b_ = extract_orb(levels[0], dataclasses.replace(oc, fast_backend="xla"))
+    for name, x, y in zip(a._fields, a, b_):
         check(torch.equal(x, y), f"extract_orb with the FAST kernel differs from the rolled ring in {name}")
-    say(f"fast scores: bit-equal on all 8 level shapes (376x1241 ... 106x346) at thresholds {ths}; "
-        f"extract_orb keypoints equal to the rolled ring's ({int(a.valid.sum())} valid); per frame "
-        f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
+    say(f"fast scores: one launch for the 8 levels (376x1241 ... 106x346) with the border mask ({b} px) and the "
+        f"3x3 NMS, bit-equal to the plain version at thresholds {ths} on a frame and on integer textures; raw "
+        f"one-level scores bit-equal; extract_orb keypoints equal to the rolled ring's ({int(a.valid.sum())} "
+        f"valid); per frame {ms:.4f} ms kernel ({dev_ms:.4f} ms on the device), {plain_ms:.4f} ms plain")
     return {"name": "fast_scores", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/fast_score.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/fast_score.py:93",
@@ -633,7 +680,13 @@ def frames(cfg, n: int):
 
 
 def rotation_angle(R: np.ndarray) -> float:
-    return float(np.arccos(np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)))
+    """Angle in radians of the rotation matrix R, in float64:
+    atan2(|vee(R - R^T)| / 2, (tr R - 1) / 2), which resolves a small
+    rotation where the arccos of the trace reads one float32 ulp of it as
+    4.9e-4 rad (tests/torch_parity.rot_angle is the same)."""
+    R = np.asarray(R, np.float64)
+    vee = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return float(np.arctan2(np.linalg.norm(vee) / 2.0, (np.trace(R) - 1.0) / 2.0))
 
 
 def run_slice(cfg, dev, n: int, local_ba_every: int = 0):
@@ -717,7 +770,7 @@ def main() -> None:
     from stereo_semantic_vo_tpu_torch.engine.window_ba import refine_state
     from stereo_semantic_vo_tpu_torch.kernels import build
     from stereo_semantic_vo_tpu_torch.kernels.ba_hessian import local_ba_blocks, motion_hessian_gradient
-    from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_scores
+    from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_scores_levels
     from stereo_semantic_vo_tpu_torch.kernels.hamming import hamming_distance_matrix_pallas
     from stereo_semantic_vo_tpu_torch.kernels.matcher import fused_best_match
     from stereo_semantic_vo_tpu_torch.kernels.patch_extract import extract_patches_levels
@@ -747,14 +800,14 @@ def main() -> None:
     say(f"peak rates: {HBM_BYTES_PER_S / 1e12} TB/s, {FP32_FLOP_PER_S / 1e12} TFLOP/s float32, "
         f"{popc_rate / 1e12:.4f} T popcounts/s ({POPC_PER_CLOCK_PER_SM} a clock per SM at the top SM clock)")
     entries = [compare_patches(cfg, dev, rng), compare_stereo(cfg, dev, rng),
-               compare_matcher(cfg, dev, rng, popc_rate), compare_fast(cfg, dev), compare_motion_hessian(cfg, dev),
+               compare_matcher(cfg, dev, rng, popc_rate), compare_fast(cfg, dev, rng), compare_motion_hessian(cfg, dev),
                compare_sgm(dense_cfg, dev), compare_local_ba(cfg, dev),
                compare_hamming_matrix(cfg, dev, rng, popc_rate)]
 
-    # each entry's launch counter: extract_patches and sgm_aggregate count on
-    # the batched entries they call
+    # each entry's launch counter: extract_patches, fast_scores and
+    # sgm_aggregate count on the batched entries they call
     kernels = {"extract_patches": extract_patches_levels, "keypoint_stereo_costs": keypoint_stereo_costs,
-               "fused_best_match": fused_best_match, "fast_scores": fast_scores,
+               "fused_best_match": fused_best_match, "fast_scores": fast_scores_levels,
                "motion_hessian_gradient": motion_hessian_gradient, "sgm_aggregate": sgm_aggregate_batch,
                "local_ba_blocks": local_ba_blocks, "hamming_distance_matrix_pallas": hamming_distance_matrix_pallas}
     off = {"fast_scores": 0, "motion_hessian_gradient": 0, "hamming_distance_matrix_pallas": 0}
@@ -785,12 +838,13 @@ def main() -> None:
     cpu_rerun("dense + window BA", dense_cfg, N_DENSE_CPU_FRAMES, poses, local_ba_every=1)
     steady_state("dense + window BA", pipe, n_d, wall, card)
 
-    # 7. the third path: the first path with the FAST kernel at every level
-    # and the fused motion-BA build at every LM step of the tracker's BA
+    # 7. the third path: the first path with the FAST kernel (one launch a
+    # frame for every level, border mask and NMS fused) and the fused
+    # motion-BA build at every LM step of the tracker's BA
     n_k = N_KNOB_FRAMES
     expected = {"extract_patches": n_k, "keypoint_stereo_costs": n_k,
                 "fused_best_match": 2 * (n_k - 1), "sgm_aggregate": 0, "local_ba_blocks": 0,
-                "fast_scores": cfg.orb.n_levels * n_k, "motion_hessian_gradient": cfg.ba.iterations * (n_k - 1),
+                "fast_scores": n_k, "motion_hessian_gradient": cfg.ba.iterations * (n_k - 1),
                 "hamming_distance_matrix_pallas": 0}
     pipe, wall, poses, by_path["knobs"] = drive_path("knob path", knob_cfg, dev, n_k, 0, kernels, expected)
     n_both = min(n_k, N_FRAMES)

@@ -38,10 +38,10 @@ SIGNATURES = {
         _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float, _P, _P,
     ],
-    "ssvo_fused_best_match": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "ssvo_fused_best_match": [_P, _P, _P, _P, _I, _I, _P, _P],
     "ssvo_sgm_aggregate": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P],
     "ssvo_local_ba_blocks": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P],
-    "ssvo_fast_scores": [_P, _I, _I, _I, _F, _F, _P, _P],
+    "ssvo_fast_scores_levels": [_P, _P, _P, _I, _I, _F, _F, _I, _I, _P, _P],
     "ssvo_motion_hessian_gradient": [_P, _P, _P, _P, _P, _I, _F, _P, _P],
     "ssvo_hamming_distance_matrix": [_P, _P, _I, _I, _P, _P],
 }

@@ -1,8 +1,10 @@
 """Fused Hamming matcher: distances plus best/second-best in one CUDA kernel.
 
 Port of ``stereo_semantic_vo_tpu.kernels.matcher.fused_best_match``; the
-kernel is ``csrc/matcher.cu``.  The plain version is ``masked_best_match``
-over ``hamming_distance_matrix``: same outputs, idx included.
+kernel is ``csrc/matcher.cu`` (a lane a strided slice of the train set,
+the lanes' best and second-best codes merged by shuffles).  The plain
+version is ``masked_best_match`` over ``hamming_distance_matrix``: same
+outputs, idx included.
 """
 
 from __future__ import annotations
@@ -16,7 +18,6 @@ from stereo_semantic_vo_tpu_torch.kernels.hamming import (
     masked_best_match,
 )
 
-
 def fused_best_match_plain(
     query: torch.Tensor, train: torch.Tensor, query_valid: torch.Tensor, train_valid: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -29,28 +30,37 @@ def fused_best_match(
     """(Q, 8) x (T, 8) int32 descriptors, (Q,) / (T,) bool masks ->
     (best_idx, best, second), each (Q,) int32; masked pairs have distance 257.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel, and
+    the three outputs are views of one (3, Q) int32 buffer."""
     if query.device.type == "cpu":
         return fused_best_match_plain(query, train, query_valid, train_valid)
     Q, T = query.shape[0], train.shape[0]
-    build.check_cuda(query, "query", torch.int32, (Q, DESC_WORDS))
-    build.check_cuda(train, "train", torch.int32, (T, DESC_WORDS))
-    build.check_cuda(query_valid, "query_valid", torch.bool, (Q,))
-    build.check_cuda(train_valid, "train_valid", torch.bool, (T,))
+    index = query.get_device()
+    # cheap attribute reads: this call's host time is most of B3's time a step
+    for name, x, dtype, shape in (("query", query, torch.int32, (Q, DESC_WORDS)),
+                                  ("train", train, torch.int32, (T, DESC_WORDS)),
+                                  ("query_valid", query_valid, torch.bool, (Q,)),
+                                  ("train_valid", train_valid, torch.bool, (T,))):
+        if x.dtype != dtype or x.shape != shape or not x.is_contiguous() or x.get_device() != index:
+            raise ValueError(f"{name}: expected a contiguous {dtype} tensor of shape {shape} on {query.device}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if index < 0:
+        raise ValueError(f"query: expected a CUDA tensor, got {query.device}")
     if T < 1 or (T + 1) * (DESC_WORDS * 32 + 1) >= 2**31:
         raise ValueError(f"train size {T} out of range")
-    if len({t.device for t in (query, train, query_valid, train_valid)}) != 1:
-        raise ValueError("all tensors must be on one device")
+    if (query.data_ptr() | train.data_ptr()) % 16:
+        raise ValueError("query and train must start on a 16-byte boundary (the kernel reads 16-byte words)")
     lib = build.library()
-    idx, best, second = (torch.empty(Q, dtype=torch.int32, device=query.device) for _ in range(3))
-    with torch.cuda.device(query.device):
-        lib.call(
-            "ssvo_fused_best_match",
-            query.data_ptr(), train.data_ptr(), query_valid.data_ptr(), train_valid.data_ptr(),
-            Q, T, idx.data_ptr(), best.data_ptr(), second.data_ptr(), build.stream_handle(query),
-        )
+    out = torch.empty((3, Q), dtype=torch.int32, device=query.device)
+    args = (query.data_ptr(), train.data_ptr(), query_valid.data_ptr(), train_valid.data_ptr(), Q, T,
+            out.data_ptr(), build.stream_handle(query))
+    if index == torch.cuda.current_device():
+        lib.call("ssvo_fused_best_match", *args)
+    else:
+        with torch.cuda.device(index):
+            lib.call("ssvo_fused_best_match", *args)
     fused_best_match.launches += 1
-    return idx, best, second
+    return out.unbind(0)
 
 
 fused_best_match.launches = 0

@@ -8,7 +8,8 @@ the reference:
 * top-k selection uses a stable descending sort, so ties go to the lower
   index as in ``lax.top_k`` (grid cells are full of zero-score ties);
 * FAST sums (``kernels/fast_score.py``, which also holds the FAST kernel
-  that ``fast_backend="pallas"`` selects), the box blur and the window
+  that ``fast_backend="pallas"`` selects: one launch a frame for every
+  level, with the border mask and 3x3 NMS), the box blur and the window
   reductions accumulate in the reference's sequential order;
 * the pyramid is resized with the separable weight matrices that
   ``jax.image.resize(..., "linear")`` builds (triangle kernel, antialiased
@@ -30,7 +31,8 @@ import torch.nn.functional as F
 
 from stereo_semantic_vo_tpu_torch.core.config import ORBConfig, resolve_backend
 from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_score_rolled as _fast_score
-from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_scores, seq_sum
+from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_scores_levels, mask_border, seq_sum
+from stereo_semantic_vo_tpu_torch.kernels.fast_score import nms3 as _nms3
 from stereo_semantic_vo_tpu_torch.kernels.patch_extract import (
     extract_patches_levels,
     extract_patches_levels_plain,
@@ -95,12 +97,6 @@ def resize_linear(img: torch.Tensor, Hn: int, Wn: int) -> torch.Tensor:
     H, W = img.shape
     Ry, Rx = _resize_matrices(H, W, Hn, Wn, img.device)
     return (Ry @ img) @ Rx
-
-
-def _nms3(score: torch.Tensor) -> torch.Tensor:
-    """3x3 non-max suppression (padding counts as -inf): keep local maxima."""
-    m = F.max_pool2d(score[None, None], 3, stride=1, padding=1)[0, 0]
-    return torch.where(score >= m, score, 0.0)
 
 
 def _grid_topk(score: torch.Tensor, rows: int, cols: int, k_cell: int):
@@ -197,7 +193,7 @@ def extract_orb(image: torch.Tensor, cfg: ORBConfig) -> Keypoints:
         raise NotImplementedError("steered BRIEF (ORBConfig.steer=True) is not ported yet (ROADMAP A2)")
     dev = image.device
     # "auto" keeps the rolled ring everywhere, as the reference's does
-    score = fast_scores if resolve_backend(cfg.fast_backend, dev, "xla", "xla") == "pallas" else _fast_score
+    fused = resolve_backend(cfg.fast_backend, dev, "xla", "xla") == "pallas"
     patch_backend = resolve_backend(cfg.patch_backend, dev, "pallas", "xla")
     budgets = _level_budgets(cfg, 2 * cfg.max_keypoints)
     bonus = 1e6  # strong corners outrank weak-cell fallbacks
@@ -212,13 +208,15 @@ def extract_orb(image: torch.Tensor, cfg: ORBConfig) -> Keypoints:
 
     all_uv, all_rank, all_score, all_level, all_valid = [], [], [], [], []
     smoothed, all_y0, all_x0, counts = [], [], [], []
-    for level, img_l in enumerate(pyramid(image, cfg)):
+    levels = pyramid(image, cfg)
+    # "pallas": every level's scores, border mask and NMS in one kernel launch
+    fused_scores = fast_scores_levels(levels, ths, b) if fused else None
+    for level, img_l in enumerate(levels):
         Hl, Wl = img_l.shape
-        scores = []
-        for sc in score(img_l, ths):
-            inner = torch.zeros_like(sc)  # kill borders (circle radius + patch)
-            inner[b : Hl - b, b : Wl - b] = sc[b : Hl - b, b : Wl - b]
-            scores.append(_nms3(inner))
+        if fused:
+            scores = fused_scores[level]
+        else:  # kill borders (circle radius + patch), then NMS
+            scores = [_nms3(mask_border(sc, b)) for sc in _fast_score(img_l, ths)]
         if two_pass:
             hi, lo = scores
             resp = torch.where(hi > 0.0, hi, lo)

@@ -64,17 +64,17 @@ def _package_modules() -> dict:
     return {k: m for k, m in sys.modules.items() if k == PKG or k.startswith(PKG + ".")}
 
 
-def load_parent(parent: str):
-    """The older tree's ``kernels/ba_hessian``, ``ops/local_ba`` and
-    ``ops/ba``, imported under the package's own name from DIR and then set
-    aside; -> (modules by short name, every module of the older package)."""
+def load_parent(parent: str, names: tuple[str, ...] = ("kernels.ba_hessian", "ops.local_ba", "ops.ba")):
+    """The older tree's modules ``names`` (by default ``kernels/ba_hessian``,
+    ``ops/local_ba`` and ``ops/ba``), imported under the package's own name
+    from DIR and then set aside; -> (modules by short name, every module of
+    the older package)."""
     ours = _package_modules()
     for k in ours:
         del sys.modules[k]
     sys.path.insert(0, os.path.abspath(parent))
     try:
-        mods = {name: importlib.import_module(f"{PKG}.{name}")
-                for name in ("kernels.ba_hessian", "ops.local_ba", "ops.ba")}
+        mods = {name: importlib.import_module(f"{PKG}.{name}") for name in names}
         theirs = _package_modules()
     finally:
         sys.path.pop(0)

@@ -1,12 +1,13 @@
 """Host ms/frame and device busy time of one tracking path on one CUDA
 card, for whichever checkout of the port is first on ``sys.path``:
 
-    PYTHONPATH=<checkout> python3 stereo_semantic_vo_tpu_torch/tools/path_profile.py --path {dense,knob} --label NAME
+    PYTHONPATH=<checkout> python3 stereo_semantic_vo_tpu_torch/tools/path_profile.py --path {sparse,dense,knob} --label NAME
 
 ``--path dense`` (the default) is the dense + window-BA path
-(``sparse_mode="dense"``, window BA every frame); ``--path knob`` the
-sparse path with the FAST kernel and the fused motion-BA build
-(``orb.fast_backend`` and ``ba.hessian_backend`` = "pallas").  It drives
+(``sparse_mode="dense"``, window BA every frame); ``--path sparse`` the
+main path, ``VOConfig.kitti()`` as it is; ``--path knob`` the sparse path
+with the FAST kernel and the fused motion-BA build (``orb.fast_backend``
+and ``ba.hessian_backend`` = "pallas").  It drives
 ``VOPipeline`` of ``VOConfig.kitti("00")`` over the procedural 1241x376
 two-plane sequence (a detection box every fifth frame, as
 ``chip_smoke.py`` feeds it): ``--warmup`` frames, then ``--frames`` frames
@@ -40,7 +41,7 @@ HAND_KERNELS = ("extract_patches", "stereo_costs", "fused_best_match", "fast_sco
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("dense", "knob"), default="dense")
+    ap.add_argument("--path", choices=("sparse", "dense", "knob"), default="dense")
     ap.add_argument("--label", default="")
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--frames", type=int, default=10)
@@ -48,7 +49,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("path_profile: needs a CUDA card")
     k = VOConfig.kitti("00")
-    if args.path == "dense":
+    if args.path == "sparse":
+        cfg = k
+    elif args.path == "dense":
         cfg = dataclasses.replace(k, stereo=dataclasses.replace(k.stereo, sparse_mode="dense"))
     else:
         cfg = dataclasses.replace(k, orb=dataclasses.replace(k.orb, fast_backend="pallas"),

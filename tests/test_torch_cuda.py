@@ -125,7 +125,7 @@ def test_stereo_kernel_matches_plain():
     torch.testing.assert_close(a.disparity, b.disparity, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("Q", [512, 2048])
+@pytest.mark.parametrize("Q", [1, 512, 2048, 2049])
 @pytest.mark.parametrize("case", ["random", "all_invalid", "duplicates"])
 def test_matcher_kernel_matches_plain(Q, case):
     dev = cuda_device()
@@ -137,15 +137,47 @@ def test_matcher_kernel_matches_plain(Q, case):
         qv[:] = False
     elif case == "duplicates":
         tr[9] = tr[4]
-        q[:8] = tr[100:108]
-        q[20] = tr[4]
+        q[:8] = tr[100 : 100 + min(Q, 8)]
+        q[min(Q, 21) - 1] = tr[4]
         tv[:] = True
     args = [t(a, dev) for a in (q, tr, qv, tv)]
     got = _launched(TM.fused_best_match, TM.fused_best_match, *args)
     for g, w in zip(got, TM.fused_best_match_plain(*args)):
         assert torch.equal(g, w)
     if case == "duplicates":
-        assert int(got[0][20]) == 4 and int(got[1][20]) == 0
+        assert int(got[0][min(Q, 21) - 1]) == 4 and int(got[1][min(Q, 21) - 1]) == 0
+
+
+@pytest.mark.parametrize("T", [1, 31, 33, 512, 517])
+@pytest.mark.parametrize("case", ["random", "ties", "all_masked"])
+def test_matcher_kernel_slice_edge_cases(T, case):
+    """tests/test_torch_matcher.py's cases for the lanes' strided slices:
+    ties across slices (rows 1 and 2) and within one (rows T-33 and T-1),
+    every pair masked, T around the warp width; Q=1 and Q=2049, bit-equal
+    to the plain version."""
+    dev = cuda_device()
+    rng = np.random.RandomState(T)
+    for Q in (1, 2049):
+        q, tr = random_desc(rng, Q), random_desc(rng, T)
+        qv, tv = rng.rand(Q) > 0.2, rng.rand(T) > 0.2
+        if case == "ties" and T >= 3:
+            tr[2] = tr[1]
+            q[0], qv[0], tv[1:3] = tr[1], True, True
+            if T > 32 and Q > 1:
+                tr[T - 1] = tr[T - 33]
+                q[1], qv[1], tv[T - 33], tv[T - 1] = tr[T - 1], True, True, True
+        elif case == "all_masked":
+            tv[:] = False
+        args = [t(a, dev) for a in (q, tr, qv, tv)]
+        got = _launched(TM.fused_best_match, TM.fused_best_match, *args)
+        for g, w in zip(got, TM.fused_best_match_plain(*args)):
+            assert torch.equal(g, w), Q
+        if case == "ties" and T >= 3:
+            assert int(got[0][0]) == 1 and int(got[1][0]) == 0
+            if T > 32 and Q > 1:
+                assert int(got[0][1]) == T - 33 and int(got[1][1]) == 0 and int(got[2][1]) == 0
+        if case == "all_masked":
+            assert (got[0] == 0).all() and (got[1] == 257).all() and (got[2] == 257).all()
 
 
 @pytest.mark.parametrize(
@@ -209,11 +241,12 @@ def test_sgm_kernel_min_key_on_signed_zeros_negatives_and_large_costs():
 
 @pytest.mark.parametrize("ths", [(20.0, 7.0), (20.0,)])
 def test_fast_kernel_matches_plain_at_the_level_shapes(ths):
+    """The raw one-level scores (the TPU kernel's contract; the epilogue off)."""
     dev = cuda_device()
     levels = pyramid(t(two_plane_frame_source(H, W)(2)[0], dev), VOConfig.kitti().orb)
     assert [tuple(x.shape) for x in levels[::7]] == [(376, 1241), (106, 346)]
     for img in levels:
-        got = _launched(TF.fast_scores, TF.fast_scores, img, ths)
+        got = _launched(TF.fast_scores, TF.fast_scores_levels, img, ths)
         want = TF.fast_scores_plain(img, ths)
         assert len(got) == len(ths)
         for g, w in zip(got, want):
@@ -221,12 +254,51 @@ def test_fast_kernel_matches_plain_at_the_level_shapes(ths):
     assert float(got[0].max()) > 0  # corners found
 
 
+@pytest.mark.parametrize("ths", [(20.0, 7.0), (20.0,)])
+@pytest.mark.parametrize("kind", ["frame", "integers"])
+def test_fast_levels_kernel_matches_plain_at_the_level_shapes(ths, kind):
+    """The 8 kitti() levels of a 1241x376 frame in one launch, border 19,
+    bit-equal to the plain version; "integers" is an integer-valued
+    texture, whose integer scores tie often under the NMS."""
+    dev = cuda_device()
+    rng = np.random.RandomState(3)
+    img = two_plane_frame_source(H, W)(2)[0] if kind == "frame" else np.round(rng.uniform(0, 255, (H, W)))
+    levels = pyramid(t(img.astype(np.float32), dev), VOConfig.kitti().orb)
+    if kind == "integers":
+        levels = [torch.round(x) for x in levels]
+    got = _launched(TF.fast_scores_levels, TF.fast_scores_levels, levels, ths, 19)
+    want = TF.fast_scores_levels_plain(levels, ths, 19)
+    for img_l, maps, plain in zip(levels, got, want):
+        assert len(maps) == len(ths)
+        for g, w in zip(maps, plain):
+            assert torch.equal(g, w), tuple(img_l.shape)
+    assert float(got[0][0].max()) > 0  # corners survive the border and the NMS
+
+
+@pytest.mark.parametrize("ths", [(20.0, 7.0), (20.0,)])
+@pytest.mark.parametrize("border", [0, 3, 19, 40])
+def test_fast_levels_kernel_matches_plain_at_ragged_shapes(ths, border):
+    """Eight levels (the kernel's table) in one launch: shapes that are no
+    multiple of the 30-px fused tile (32 px raw), some just past a tile
+    edge (31 and 61 rows), levels the border covers whole (at 40: 61x95,
+    5x7) and a 1x1 level."""
+    dev = cuda_device()
+    rng = np.random.RandomState(border)
+    shapes = [(31, 61), (83, 139), (61, 95), (17, 33), (5, 7), (1, 1), (33, 31), (97, 307)]
+    levels = [t(np.round(rng.uniform(0, 255, s)).astype(np.float32), dev) for s in shapes]
+    got = _launched(TF.fast_scores_levels, TF.fast_scores_levels, levels, ths, border)
+    for img_l, maps, plain in zip(levels, got, TF.fast_scores_levels_plain(levels, ths, border)):
+        for g, w in zip(maps, plain):
+            assert torch.equal(g, w), (tuple(img_l.shape), border)
+
+
 def test_orb_with_fast_kernel_equals_rolled_ring():
-    """The 19-px border mask hides the zero halo: the same keypoints."""
+    """The 19-px border mask hides the zero halo: the same keypoints, from
+    one launch for the frame's 8 levels."""
     dev = cuda_device()
     img = t(two_plane_frame_source(H, W)(2)[0], dev)
     k = VOConfig.kitti().orb
-    a = extract_orb(img, dataclasses.replace(k, fast_backend="pallas"))
+    a = _launched(extract_orb, TF.fast_scores_levels, img, dataclasses.replace(k, fast_backend="pallas"))
     b = extract_orb(img, dataclasses.replace(k, fast_backend="xla"))
     for x, y in zip(a, b):
         assert torch.equal(x, y)
@@ -479,8 +551,8 @@ def test_dense_track_step_and_refine_read_nothing_back():
 def test_track_step_reads_nothing_back(knobs):
     """Every guard of the step stays on the device: PyTorch's sync debug mode
     raises on a synchronizing call (a prototype that may miss some).  With
-    the knobs on, the step runs the FAST kernel at each level and the fused
-    motion-BA build at each LM iteration."""
+    the knobs on, the step runs the FAST kernel once for all levels and the
+    fused motion-BA build at each LM iteration."""
     dev = cuda_device()
     k = VOConfig.kitti()
     cfg = dataclasses.replace(
@@ -492,7 +564,7 @@ def test_track_step_reads_nothing_back(knobs):
     boxes, bv = torch.zeros((32, 4), device=dev), torch.zeros(32, dtype=torch.bool, device=dev)
     state, _ = TT.init_step(init_state(cfg, dev), TT.FrameInput(*(t(a, dev) for a in src(0)), boxes, bv), cfg)
     frame = TT.FrameInput(*(t(a, dev) for a in src(1)), boxes, bv)
-    launches = TF.fast_scores.launches, TB.motion_hessian_gradient.launches
+    launches = TF.fast_scores_levels.launches, TB.motion_hessian_gradient.launches
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -500,6 +572,6 @@ def test_track_step_reads_nothing_back(knobs):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(out.pnp_ok)
-    n_fast, n_motion = (3, cfg.ba.iterations) if knobs else (0, 0)
-    assert TF.fast_scores.launches == launches[0] + n_fast
+    n_fast, n_motion = (1, cfg.ba.iterations) if knobs else (0, 0)  # B4: one launch for the 3 levels
+    assert TF.fast_scores_levels.launches == launches[0] + n_fast
     assert TB.motion_hessian_gradient.launches == launches[1] + n_motion

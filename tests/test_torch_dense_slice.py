@@ -33,7 +33,7 @@ from stereo_semantic_vo_tpu_torch.engine import tracker as TT
 from stereo_semantic_vo_tpu_torch.engine.state import init_state as t_init_state
 from tests.test_torch_slice import COUNTERS, _boxes, _kitti_knobs
 from tests.test_tracker import TX_STEP, render
-from tests.torch_parity import n, t
+from tests.torch_parity import n, rot_angle, t
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_FRAMES = 4
@@ -61,16 +61,12 @@ def runs():
     return out_j, out_t
 
 
-def _rot_angle(R):
-    return float(np.arccos(np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)))
-
-
 @pytest.mark.parametrize("frame", range(N_FRAMES))
 def test_dense_track_step_matches_jax(runs, frame):
     out_j, out_t = runs
     Tj, Tt = out_j[frame].T_wc.astype(np.float64), n(out_t[frame].T_wc).astype(np.float64)
     assert np.linalg.norm(Tj[:3, 3] - Tt[:3, 3]) <= 1e-3
-    assert _rot_angle(Tj[:3, :3].T @ Tt[:3, :3]) <= 1e-3
+    assert rot_angle(Tj[:3, :3].T @ Tt[:3, :3]) <= 1e-3
     assert bool(out_t[frame].pnp_ok) == bool(out_j[frame].pnp_ok)
     assert np.linalg.norm(Tt[:3, 3] - [frame * TX_STEP, 0, 0]) < 0.05
     for name in COUNTERS:

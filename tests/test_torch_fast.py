@@ -6,7 +6,13 @@ image zero-padded by 3 px) is bit-equal to it on the whole map; both equal
 the reference's rolled ring (``ops/orb._fast_score``, which wraps around)
 on ``[3:-3, 3:-3]``.  ``extract_orb(fast_backend="pallas")`` is
 bit-identical to JAX's at one level and has >= 99% identical slots at
-three, the criterion of tests/test_torch_orb_patches.py."""
+three, the criterion of tests/test_torch_orb_patches.py.
+
+``fast_scores_levels`` (all levels, border mask and 3x3 NMS in one launch
+on the card) is held to the JAX composition in ``extract_orb``'s Pallas
+branch, ``_nms3(where(border_mask, fast_scores_pallas(img_l, ths)[j], 0))``,
+bit for bit, and ``extract_orb(fast_backend="pallas")`` makes one such call
+a frame."""
 
 import dataclasses
 
@@ -50,9 +56,9 @@ def test_plain_matches_pallas_interpret(kind, H, W, ths):
 
 def test_cpu_wrapper_takes_plain_version():
     img = t(_image("texture", 40, 150))
-    before = TF.fast_scores.launches
+    before = TF.fast_scores_levels.launches  # fast_scores counts there
     got = TF.fast_scores(img, (20.0, 7.0))
-    assert TF.fast_scores.launches == before  # no kernel launch for a CPU tensor
+    assert TF.fast_scores_levels.launches == before  # no kernel launch for a CPU tensor
     for a, b in zip(got, TF.fast_scores_plain(img, (20.0, 7.0))):
         np.testing.assert_array_equal(n(a), n(b))
 
@@ -84,3 +90,67 @@ def test_extract_orb_pallas_three_levels_agree(img):
     np.testing.assert_array_equal(n(kt.valid), n(kj.valid))
     same = (n(kt.uv) == n(kj.uv)).all(1) & (n(kt.desc).view(np.uint32) == n(kj.desc)).all(1)
     assert same[n(kj.valid)].mean() >= 0.99
+
+
+def _jax_level_maps(img, ths, b):
+    """The reference's composition at one level (stereo_semantic_vo_tpu/ops/orb.py:337-343)."""
+    Hl, Wl = img.shape
+    border_mask = jnp.zeros((Hl, Wl), bool).at[b : Hl - b, b : Wl - b].set(True)
+    return [JO._nms3(jnp.where(border_mask, sc, 0.0)) for sc in fast_scores_pallas(jnp.asarray(img), ths)]
+
+
+@pytest.mark.parametrize("border", [19, 40])
+@pytest.mark.parametrize("ths", [(20.0, 7.0), (20.0,)])
+def test_levels_plain_matches_jax_composition(border, ths):
+    """A 3-level pyramid of an integer-valued texture (ties for the NMS) and
+    a 60x70 level.  Border 40 leaves level 2 (83x139) a 3-row interior and
+    covers the last level whole; border 19 is kitti()'s."""
+    rng = np.random.RandomState(11)
+    img = np.round(rng.uniform(0, 255, (120, 200))).astype(np.float32)
+    img[30:70, 50:120] = 200.0  # a block: strong corners and flat plateaus
+    cfg = TORB(max_keypoints=128, n_levels=3, steer=False)
+    levels = [n(x) for x in TO.pyramid(t(img), cfg)]
+    levels.append(np.round(rng.uniform(0, 255, (60, 70))).astype(np.float32))
+    assert [x.shape for x in levels] == [(120, 200), (100, 167), (83, 139), (60, 70)]
+    before = TF.fast_scores_levels.launches
+    got = TF.fast_scores_levels([t(x) for x in levels], ths, border)
+    assert TF.fast_scores_levels.launches == before  # a CPU tensor takes the plain version
+    assert len(got) == len(levels)
+    for level, (img_l, maps) in enumerate(zip(levels, got)):
+        want = _jax_level_maps(img_l, ths, border)
+        assert len(maps) == len(ths)
+        for j, (g, w) in enumerate(zip(maps, want)):
+            np.testing.assert_array_equal(n(g), n(w), err_msg=f"level {level}, threshold {j}")
+    # the interiors: level 2's thin band holds corners, the last level none
+    interior = n(got[2][0])[border : 83 - border, border : 139 - border]
+    assert border != 40 or (interior.shape[0] == 3 and (interior > 0).any())
+    assert border != 40 or not n(got[3][0]).any()
+    # the NMS dropped some scores that were above 0
+    raw = TF.fast_scores_plain(t(levels[0]), ths)[0]
+    assert (n(raw)[border:-border, border:-border] > 0).sum() > (n(got[0][0]) > 0).sum() > 0
+
+
+def test_levels_rejects_a_negative_border():
+    with pytest.raises(ValueError, match="border"):
+        TF.fast_scores_levels([t(np.zeros((40, 40), np.float32))], (20.0,), -1)
+
+
+@pytest.mark.parametrize("levels", [1, 3])
+def test_extract_orb_pallas_makes_one_levels_call_a_frame(img, levels, monkeypatch):
+    calls = []
+
+    def counted(imgs, ths, border):
+        calls.append((len(imgs), ths, border))
+        return TF.fast_scores_levels(imgs, ths, border)
+
+    monkeypatch.setattr(TO, "fast_scores_levels", counted)
+    kj, kt = _orb_pair(img, levels)
+    assert calls == [(levels, (20.0, 7.0), 19)]
+    xla = TO.extract_orb(t(img), TORB(max_keypoints=128, n_levels=levels, steer=False, patch_backend="auto"))
+    assert len(calls) == 1  # the rolled ring ("xla") makes none
+    for a, b in zip(kt, xla):  # bit-equal to the per-level route
+        np.testing.assert_array_equal(n(a), n(b))
+    # and to JAX's extract_orb(fast_backend="pallas"), by the criteria above
+    np.testing.assert_array_equal(n(kt.valid), n(kj.valid))
+    same = (n(kt.uv) == n(kj.uv)).all(1) & (n(kt.desc).view(np.uint32) == n(kj.desc)).all(1)
+    assert same[n(kj.valid)].mean() >= (1.0 if levels == 1 else 0.99)

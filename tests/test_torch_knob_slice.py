@@ -21,9 +21,9 @@ from stereo_semantic_vo_tpu.engine import tracker as JT
 from stereo_semantic_vo_tpu.engine.state import init_state as j_init_state
 from stereo_semantic_vo_tpu_torch.engine import tracker as TT
 from stereo_semantic_vo_tpu_torch.engine.state import init_state as t_init_state
-from tests.test_torch_slice import _frame, _kitti_knobs, _rot_angle
+from tests.test_torch_slice import _frame, _kitti_knobs
 from tests.test_tracker import TX_STEP
-from tests.torch_parity import n, t
+from tests.torch_parity import n, rot_angle, t
 
 N_FRAMES = 4
 
@@ -58,7 +58,7 @@ def test_knob_path_pose_matches_jax(runs, frame):
     out_j, out_t = runs
     Tj, Tt = out_j[frame].T_wc.astype(np.float64), n(out_t[frame].T_wc).astype(np.float64)
     assert np.linalg.norm(Tj[:3, 3] - Tt[:3, 3]) <= 1e-3
-    assert _rot_angle(Tj[:3, :3].T @ Tt[:3, :3]) <= 1e-3
+    assert rot_angle(Tj[:3, :3].T @ Tt[:3, :3]) <= 1e-3
     assert bool(out_t[frame].pnp_ok) == bool(out_j[frame].pnp_ok)
     assert np.linalg.norm(Tt[:3, 3] - [frame * TX_STEP, 0, 0]) < 0.05
     if frame == 0:  # FAST is bit-equal, so frame 0's keypoints are too

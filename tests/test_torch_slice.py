@@ -27,7 +27,7 @@ from stereo_semantic_vo_tpu_torch.engine import tracker as TT
 from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline
 from stereo_semantic_vo_tpu_torch.engine.state import init_state as t_init_state
 from tests.test_tracker import CFG, TX_STEP, render
-from tests.torch_parity import n, t
+from tests.torch_parity import n, rot_angle, t
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_FRAMES = 4
@@ -85,8 +85,23 @@ def runs():
     return cfg_j, cfg_t, out_j, out_t, states_j
 
 
-def _rot_angle(R):
-    return float(np.arccos(np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)))
+def _axis_angle(axis, angle):
+    k = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(angle) * Kx + (1 - np.cos(angle)) * Kx @ Kx
+
+
+@pytest.mark.parametrize("angle", [1e-5, 3e-4, 0.5])
+def test_rot_angle_reads_small_rotations_of_float32_poses(angle):
+    """The pose checks' helper reads a rotation between two float32 poses
+    to ~1e-7 rad; the arccos of the trace read 0 or 4.9e-4 rad at 1e-5."""
+    rng = np.random.RandomState(7)
+    for _ in range(20):
+        Ra = _axis_angle(rng.normal(size=3), rng.uniform(0, np.pi))
+        Rb = Ra @ _axis_angle(rng.normal(size=3), angle)
+        a, b = Ra.astype(np.float32).astype(np.float64), Rb.astype(np.float32).astype(np.float64)
+        assert abs(rot_angle(a.T @ b) - angle) <= 1e-6
+        assert abs(rot_angle(_axis_angle(rng.normal(size=3), angle).astype(np.float32)) - angle) <= 1e-6
 
 
 @pytest.mark.parametrize("frame", range(N_FRAMES))
@@ -94,7 +109,7 @@ def test_pose_matches_jax(runs, frame):
     _, _, out_j, out_t, _ = runs
     Tj, Tt = out_j[frame].T_wc.astype(np.float64), n(out_t[frame].T_wc).astype(np.float64)
     assert np.linalg.norm(Tj[:3, 3] - Tt[:3, 3]) <= 1e-3
-    assert _rot_angle(Tj[:3, :3].T @ Tt[:3, :3]) <= 1e-3
+    assert rot_angle(Tj[:3, :3].T @ Tt[:3, :3]) <= 1e-3
     assert bool(out_t[frame].pnp_ok) == bool(out_j[frame].pnp_ok)
     # and both track the ground truth, as tests/test_tracker.py requires
     assert np.linalg.norm(Tt[:3, 3] - [frame * TX_STEP, 0, 0]) < 0.05

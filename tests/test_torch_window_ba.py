@@ -26,7 +26,7 @@ from stereo_semantic_vo_tpu_torch import interop
 from stereo_semantic_vo_tpu_torch.engine import window_ba as TW
 from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline as TPipe
 from tests.test_tracker import CFG, TX_STEP, empty_boxes, render
-from tests.torch_parity import n
+from tests.torch_parity import n, rot_angle
 
 N_FRAMES = 6
 WIN = CFG.window.window_frames
@@ -65,14 +65,10 @@ def pipelines():
     return [n(o.T_wc) for o in jp.outputs], [n(o.T_wc) for o in tp.outputs]
 
 
-def _rot_angle(R):
-    return float(np.arccos(np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)))
-
-
 def _assert_pose_close(Ta, Tb, tol_m=1e-3, tol_rad=1e-3):
     Ta, Tb = np.asarray(Ta, np.float64), np.asarray(Tb, np.float64)
     assert np.linalg.norm(Ta[:3, 3] - Tb[:3, 3]) <= tol_m
-    assert _rot_angle(Ta[:3, :3].T @ Tb[:3, :3]) <= tol_rad
+    assert rot_angle(Ta[:3, :3].T @ Tb[:3, :3]) <= tol_rad
 
 
 @pytest.mark.parametrize("frame", range(N_FRAMES))

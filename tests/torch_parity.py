@@ -27,3 +27,14 @@ def n(x) -> np.ndarray:
 def random_desc(rng: np.random.RandomState, count: int) -> np.ndarray:
     """(count, 8) uint32 random 256-bit descriptors."""
     return rng.randint(0, 2**32, (count, 8), dtype=np.uint64).astype(np.uint32)
+
+
+def rot_angle(R) -> float:
+    """Angle in radians of the rotation matrix ``R``, in float64:
+    ``atan2(|vee(R - R^T)| / 2, (tr R - 1) / 2)``.  Unlike
+    ``arccos((tr R - 1) / 2)``, whose reading near identity is quantized by
+    the rounding of the trace (4.9e-4 rad for one float32 ulp), it resolves
+    a small rotation to the rounding of its sine."""
+    R = np.asarray(R, np.float64)
+    vee = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return float(np.arctan2(np.linalg.norm(vee) / 2.0, (np.trace(R) - 1.0) / 2.0))
