@@ -26,7 +26,8 @@ Phases, each of which raises (exit code != 0) when it fails:
 
 Each kernel's line entry carries its time and its plain version's (CUDA
 events, wrapper included; for the two BA builds beside ``step_ms``, a
-step of the build an LM loop binds once), its
+step of the build an LM loop binds once; for B2 beside ``stage_*``, the
+fused per-keypoint step the paths run), its
 device time alone (``device_ms``: the profiler's durations of its CUDA
 kernels), the least time the card could take for the same work (``bound_ms``:
 the bytes it must move at 3.35 TB/s or its operations at the card's peak
@@ -61,7 +62,6 @@ POS_BOUND_M = 0.1    # per-frame camera position error against ground truth
 ROT_BOUND_RAD = 0.01  # per-frame rotation error against ground truth (identity)
 CPU_POS_TOL_M = 1e-3  # GPU vs CPU pose agreement (the slice parity tolerance)
 CPU_ROT_TOL_RAD = 1e-3
-STEREO_RTOL = 1e-5
 BA_RTOL, BA_ATOL_REL, BA_COST_RTOL = 3e-5, 1e-4, 1e-5  # tests/test_ba_hessian.py's bounds
 MH_RTOL, MH_ATOL_REL, MH_COST_RTOL = 2e-5, 1e-6, 1e-5  # its motion-build bounds
 PATH_POS_TOL_M = 1e-3  # knob path vs first path: B4 is bit-equal, B5 sums in another order
@@ -228,57 +228,98 @@ def compare_patches(cfg, dev, rng) -> dict:
             "library_ms": lib_ms}
 
 
+def stereo_inputs(cfg, dev, rng):
+    """A frame of the smoke scene with a constant patch (every window cost
+    ties there) and K=512 keypoints: the four corners, x < D + r (strip
+    clamped at the left edge), half-pixel coordinates, keypoints in the
+    patch, ~10% not valid."""
+    from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
+
+    H, W, K = cfg.camera.height, cfg.camera.width, cfg.orb.max_keypoints
+    D, r = cfg.stereo.max_disparity, cfg.stereo.block_radius
+    left, right = (a.copy() for a in two_plane_frame_source(H, W)(3))
+    left[100:140, 600:700] = 128.0
+    right[100:140, 500:700] = 128.0
+    uv = np.stack([rng.uniform(0, W, K), rng.uniform(0, H, K)], -1).astype(np.float32)
+    uv[:10] = [[0, 0], [W - 1, H - 1], [0, H - 1], [W - 1, 0], [3, 200], [D + r - 2, 50], [20.5, 80.5],
+               [61.5, 21.5], [650, 120], [660.5, 110]]
+    valid = rng.rand(K) > 0.1
+    valid[:10] = True
+    return [torch.from_numpy(a).to(dev) for a in (left, right, uv, valid)]
+
+
 def compare_stereo(cfg, dev, rng) -> dict:
+    """B2: the raw costs (the TPU kernel's contract, the epilogue off) and
+    the fused step (``keypoint_disparity``: origins, costs, argmin,
+    sub-pixel step, gates, depth in one launch), each bit-equal to its
+    plain version, and ``sparse_disparity``'s two modes equal."""
     from stereo_semantic_vo_tpu_torch.core.camera import Camera
     from stereo_semantic_vo_tpu_torch.kernels.sparse_stereo import (
+        keypoint_disparity,
+        keypoint_disparity_plain,
+        keypoint_origins,
         keypoint_stereo_costs,
         keypoint_stereo_costs_plain,
     )
     from stereo_semantic_vo_tpu_torch.ops.stereo import sparse_disparity
-    from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
 
     H, W, K = cfg.camera.height, cfg.camera.width, cfg.orb.max_keypoints
     sc = cfg.stereo
-    left_np, right_np = two_plane_frame_source(H, W)(3)
-    left, right = torch.from_numpy(left_np).to(dev), torch.from_numpy(right_np).to(dev)
-    uv = np.stack([rng.uniform(0, W, K), rng.uniform(0, H, K)], -1).astype(np.float32)
-    uv[:4] = [[0, 0], [W - 1, H - 1], [3, 200], [W - 2, 5]]  # edge clamps
-    uv_t = torch.from_numpy(uv).to(dev)
     D, r = sc.max_disparity, sc.block_radius
     P, Ws = 2 * r + 1, D + 2 * r
-    x = torch.round(uv_t[:, 0]).to(torch.int32)
-    y = torch.round(uv_t[:, 1]).to(torch.int32)
-    y0 = torch.clamp(y - r, 0, H - P)
-    xl0 = torch.clamp(x - r, 0, W - P)
-    xr0 = torch.clamp(x - (D - 1) - r, 0, W - Ws)
+    left, right, uv, kp_valid = stereo_inputs(cfg, dev, rng)
+    y0, xl0, xr0, shift = keypoint_origins(uv, H, W, D, r)
+    check(int((shift > 0).sum()) >= 2, "no keypoint has its strip clamped at the left edge")
     args = (left, right, y0, xl0, xr0, D, r, sc.color_weight, sc.grad_weight, sc.color_trunc, sc.grad_trunc)
     got = keypoint_stereo_costs(*args)
     want = keypoint_stereo_costs_plain(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    check(torch.allclose(got, want, rtol=STEREO_RTOL, atol=0.0), f"stereo costs differ (max abs {err})")
+    check(torch.equal(got, want), f"stereo costs differ (max abs {err})")
     cam = Camera.from_config(cfg.camera, dev)
-    valid = torch.ones(K, dtype=torch.bool, device=dev)
-    a = sparse_disparity(left, right, uv_t, valid, cam, dataclasses.replace(sc, sparse_mode="pallas"))
-    b = sparse_disparity(left, right, uv_t, valid, cam, dataclasses.replace(sc, sparse_mode="strips"))
-    check(torch.equal(a.valid, b.valid), "sparse_disparity valid masks differ")
-    check(torch.allclose(a.disparity, b.disparity, rtol=0, atol=1e-4), "sparse_disparity disparities differ")
+    step = (left, right, uv, kp_valid, cam.bf, D, r, sc.color_weight, sc.grad_weight, sc.color_trunc,
+            sc.grad_trunc, sc.uniqueness_ratio, sc.min_disparity)
+    got = keypoint_disparity(*step)
+    want = keypoint_disparity_plain(*step)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("disparity", "depth", "valid", "cost"), got, want):
+        check(torch.equal(a, b), f"fused stereo step: {name} differs from the plain version")
+    a = sparse_disparity(left, right, uv, kp_valid, cam, dataclasses.replace(sc, sparse_mode="pallas"))
+    b = sparse_disparity(left, right, uv, kp_valid, cam, dataclasses.replace(sc, sparse_mode="strips"))
+    check(all(torch.equal(x, y) for x, y in zip(a, b)), "sparse_disparity's pallas and strips modes differ")
+    # the step's device work and host allocations: one kernel, two outputs
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    keypoint_disparity(*step)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    check(allocs <= 2, f"the fused stereo step made {allocs} allocations, expected at most 2")
     ms = median_ms(lambda: keypoint_stereo_costs(*args))
-    dev_ms = device_ms(lambda: keypoint_stereo_costs(*args), ("stereo_costs_kernel",))
+    dev_ms = device_ms(lambda: keypoint_stereo_costs(*args), ("keypoint_stereo_kernel",), only=True)
     plain_ms = median_ms(lambda: keypoint_stereo_costs_plain(*args))
-    say(f"stereo costs: max abs err {err} (rtol {STEREO_RTOL}), valid masks equal "
-        f"({int(a.valid.sum())}/{K} valid); {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
+    stage_ms = median_ms(lambda: keypoint_disparity(*step))
+    stage_dev_ms = device_ms(lambda: keypoint_disparity(*step), ("keypoint_stereo_kernel",), only=True)
+    stage_plain_ms = median_ms(lambda: keypoint_disparity_plain(*step))
     # the union of the left windows and of the right strips, each with a
-    # gradient column either side, read once; the costs and three origins;
-    # 10 flops a window term
+    # gradient column either side, read once; 10 flops a window term.  The
+    # raw call: three origins in, the costs out; the step: uv, kp_valid and
+    # bf in, disparity, depth, cost and valid out
     covered = covered_pixels(H, W, y0, xl0 - 1, P, P + 2) + covered_pixels(H, W, y0, xr0 - 1, P, Ws + 2)
-    nbytes = 4 * covered + 4 * K * D + 12 * K
+    ops = 10.0 * K * D * P * P
+    stage_bound = bound(4 * covered + 9 * K + 4 + 13 * K, ops)
+    say(f"stereo: raw costs and the fused step (disparity, depth, valid, cost) bit-equal to their plain versions "
+        f"({int(got[2].sum())}/{K} valid; corners, left-edge shifts, a tied patch, invalid keypoints), one kernel "
+        f"and {allocs} allocations a step; raw {ms:.4f} ms ({dev_ms:.4f} ms on the device), {plain_ms:.4f} ms "
+        f"plain; step {stage_ms:.4f} ms ({stage_dev_ms:.4f} ms on the device), {stage_plain_ms:.4f} ms plain, "
+        f"bound {stage_bound['bound_ms'] * 1e3:.3f} us")
     return {"name": "keypoint_stereo_costs", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/sparse_stereo.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/sparse_stereo.py:142",
             "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            **bound(nbytes, 10.0 * K * D * P * P),
-            "library_ms": None}
+            **bound(4 * covered + 4 * K * D + 12 * K, ops),
+            "library_ms": None,
+            "stage_ms": stage_ms, "stage_device_ms": stage_dev_ms, "stage_plain_ms": stage_plain_ms,
+            "stage_bound_ms": stage_bound["bound_ms"], "stage_bound_by": stage_bound["bound_by"],
+            "note": "ms / device_ms / plain_ms / bound_ms: the raw call (the TPU kernel's contract); stage_*: "
+                    "keypoint_disparity, the whole per-keypoint step in one launch, which the paths run"}
 
 
 def compare_matcher(cfg, dev, rng, popc_rate: float) -> dict:
@@ -647,13 +688,20 @@ def compare_hamming_matrix(cfg, dev, rng, popc_rate: float) -> dict:
         check(torch.equal(got, want), f"Hamming matrix differs from its plain version at Q={Q}, T={T}")
         check(torch.equal(lib.to(torch.int32), want), f"torch.cdist(p=0) differs from the Hamming matrix at Q={Q}")
         ms += median_ms(lambda: hamming_distance_matrix_pallas(qd, td))
-        dev_ms += device_ms(lambda: hamming_distance_matrix_pallas(qd, td), ("hamming_matrix_kernel",))
+        dev_ms += device_ms(lambda: hamming_distance_matrix_pallas(qd, td), ("hamming_matrix_kernel",), only=True)
         plain_ms += median_ms(lambda: hamming_distance_matrix(qd, td))
         lib_ms += median_ms(lambda: torch.cdist(qb, tb, p=0))
         b = bound((Q + T) * 32 + Q * T * 4, Q * T * 8, popc_rate)  # words in, the matrix out
         bound_ms += b["bound_ms"]
+    for Q, Te in ((2049, 513), (1, 511), (70, 1)):  # ragged: T no multiple of a thread's 4 columns
+        qd, td = (torch.from_numpy(rng.randint(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32).view(np.int32))
+                  .to(dev) for n in (Q, Te))
+        check(torch.equal(hamming_distance_matrix_pallas(qd, td), hamming_distance_matrix(qd, td)),
+              f"Hamming matrix differs from its plain version at Q={Q}, T={Te}")
     say(f"hamming matrix: equal to the plain version and to torch.cdist(p=0) at Q=2048 and Q=512 against "
-        f"T={T}; both calls {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms cdist")
+        f"T={T}, and to the plain version at (Q, T) = (2049, 513), (1, 511), (70, 1); both calls {ms:.4f} ms "
+        f"kernel ({dev_ms * 1e3:.2f} us on the device, bound {bound_ms * 1e3:.2f} us), {plain_ms:.4f} ms plain, "
+        f"{lib_ms:.4f} ms cdist")
     return {"name": "hamming_distance_matrix_pallas", "route": "cuda",
             "source": "stereo_semantic_vo_tpu_torch/csrc/hamming.cu",
             "replaces": "stereo_semantic_vo_tpu/kernels/hamming.py:73",

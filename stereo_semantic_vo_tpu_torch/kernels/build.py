@@ -34,9 +34,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: (pointers..., sizes..., stream) -> cudaError_t as int
 SIGNATURES = {
     "ssvo_extract_patches_levels": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P],
-    "ssvo_keypoint_stereo_costs": [
-        _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float, _P, _P,
+    "ssvo_keypoint_stereo_costs": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],
+    "ssvo_keypoint_disparity": [
+        _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P,
     ],
     "ssvo_fused_best_match": [_P, _P, _P, _P, _I, _I, _P, _P],
     "ssvo_sgm_aggregate": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P],
@@ -139,6 +139,32 @@ def stream_handle(t) -> int:
     import torch
 
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def check_tensors(index: int, checks) -> None:
+    """Raise unless each ``(name, tensor, dtype, shape)`` of ``checks`` is a
+    contiguous tensor of that dtype and shape on CUDA device ``index``.
+    Attribute reads only: the wrapper's host time is most of a small
+    kernel's call."""
+    for name, x, dtype, shape in checks:
+        if x.dtype != dtype or x.shape != shape or not x.is_contiguous() or x.get_device() != index:
+            raise ValueError(f"{name}: expected a contiguous {dtype} tensor of shape {tuple(shape)} on cuda:{index}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if index < 0:
+        raise ValueError("expected CUDA tensors, got CPU tensors")
+
+
+def call_on(index: int, name: str, *args) -> None:
+    """Call the C entry point ``name`` with CUDA device ``index`` current,
+    entering its context only when another device is current."""
+    import torch
+
+    lib = library()
+    if index == torch.cuda.current_device():
+        lib.call(name, *args)
+    else:
+        with torch.cuda.device(index):
+            lib.call(name, *args)
 
 
 def check_cuda(t, name: str, dtype, shape: tuple) -> None:

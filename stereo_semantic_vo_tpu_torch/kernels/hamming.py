@@ -49,19 +49,19 @@ def hamming_distance_matrix(query: torch.Tensor, train: torch.Tensor) -> torch.T
 def hamming_distance_matrix_pallas(query: torch.Tensor, train: torch.Tensor) -> torch.Tensor:
     """(Q, 8) x (T, 8) int32 -> (Q, T) int32 Hamming distances.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which reads 16-byte words: both must start on a 16-byte boundary."""
     if query.device.type == "cpu":
         return hamming_distance_matrix(query, train)
     Q, T = query.shape[0], train.shape[0]
-    build.check_cuda(query, "query", torch.int32, (Q, DESC_WORDS))
-    build.check_cuda(train, "train", torch.int32, (T, DESC_WORDS))
-    if query.device != train.device:
-        raise ValueError("all tensors must be on one device")
-    lib = build.library()
+    index = query.get_device()
+    build.check_tensors(index, (("query", query, torch.int32, (Q, DESC_WORDS)),
+                                ("train", train, torch.int32, (T, DESC_WORDS))))
+    if (query.data_ptr() | train.data_ptr()) % 16:
+        raise ValueError("query and train must start on a 16-byte boundary (the kernel reads 16-byte words)")
     out = torch.empty((Q, T), dtype=torch.int32, device=query.device)
-    with torch.cuda.device(query.device):
-        lib.call("ssvo_hamming_distance_matrix", query.data_ptr(), train.data_ptr(), Q, T, out.data_ptr(),
-                 build.stream_handle(query))
+    build.call_on(index, "ssvo_hamming_distance_matrix", query.data_ptr(), train.data_ptr(), Q, T, out.data_ptr(),
+                  build.stream_handle(query))
     hamming_distance_matrix_pallas.launches += 1
     return out
 

@@ -36,29 +36,17 @@ def fused_best_match(
         return fused_best_match_plain(query, train, query_valid, train_valid)
     Q, T = query.shape[0], train.shape[0]
     index = query.get_device()
-    # cheap attribute reads: this call's host time is most of B3's time a step
-    for name, x, dtype, shape in (("query", query, torch.int32, (Q, DESC_WORDS)),
-                                  ("train", train, torch.int32, (T, DESC_WORDS)),
-                                  ("query_valid", query_valid, torch.bool, (Q,)),
-                                  ("train_valid", train_valid, torch.bool, (T,))):
-        if x.dtype != dtype or x.shape != shape or not x.is_contiguous() or x.get_device() != index:
-            raise ValueError(f"{name}: expected a contiguous {dtype} tensor of shape {shape} on {query.device}, "
-                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-    if index < 0:
-        raise ValueError(f"query: expected a CUDA tensor, got {query.device}")
+    build.check_tensors(index, (("query", query, torch.int32, (Q, DESC_WORDS)),
+                                ("train", train, torch.int32, (T, DESC_WORDS)),
+                                ("query_valid", query_valid, torch.bool, (Q,)),
+                                ("train_valid", train_valid, torch.bool, (T,))))
     if T < 1 or (T + 1) * (DESC_WORDS * 32 + 1) >= 2**31:
         raise ValueError(f"train size {T} out of range")
     if (query.data_ptr() | train.data_ptr()) % 16:
         raise ValueError("query and train must start on a 16-byte boundary (the kernel reads 16-byte words)")
-    lib = build.library()
     out = torch.empty((3, Q), dtype=torch.int32, device=query.device)
-    args = (query.data_ptr(), train.data_ptr(), query_valid.data_ptr(), train_valid.data_ptr(), Q, T,
-            out.data_ptr(), build.stream_handle(query))
-    if index == torch.cuda.current_device():
-        lib.call("ssvo_fused_best_match", *args)
-    else:
-        with torch.cuda.device(index):
-            lib.call("ssvo_fused_best_match", *args)
+    build.call_on(index, "ssvo_fused_best_match", query.data_ptr(), train.data_ptr(), query_valid.data_ptr(),
+                  train_valid.data_ptr(), Q, T, out.data_ptr(), build.stream_handle(query))
     fused_best_match.launches += 1
     return out.unbind(0)
 

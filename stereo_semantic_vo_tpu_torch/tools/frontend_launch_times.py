@@ -1,4 +1,5 @@
-"""Time kernels B4 (FAST scores) and B3 (the fused matcher) of this tree
+"""Time kernels B4 (FAST scores), B3 (the fused matcher), B2 (the
+per-keypoint stereo stage) and B8 (the Hamming matrix) of this tree
 against those of another checkout of the port, on one CUDA card, at the
 shapes the tracking paths give them.
 
@@ -18,16 +19,21 @@ events (median of ``--reps`` calls), in turns older, this, this, older:
   This tree makes its one fused call;
 - B3: a tracking step's two matcher calls (Q=2048 and Q=512 against
   T=512);
+- B2: ``ops.stereo.sparse_disparity`` in mode "pallas" on a frame's K=512
+  keypoints (``chip_smoke.stereo_inputs``): whatever each tree runs for
+  it, the kernel and the PyTorch ops around it;
+- B8: the Hamming matrices of B3's two shapes;
 
 then each one's device time (``torch.profiler``: every kernel, copy and
 fill the work puts on the device).  It checks that the two trees give
-equal maps and matches.  One JSON line goes to stdout and, with ``--out PATH``, to that
+equal maps, matches, stereo outputs and matrices.  One JSON line goes to stdout and, with ``--out PATH``, to that
 file.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -35,10 +41,12 @@ import sys
 import numpy as np
 import torch
 
-from chip_smoke import device_ms, median_ms
+from chip_smoke import device_ms, median_ms, stereo_inputs
+from stereo_semantic_vo_tpu_torch.core.camera import Camera
 from stereo_semantic_vo_tpu_torch.core.config import VOConfig
 from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
-from stereo_semantic_vo_tpu_torch.kernels import fast_score, matcher
+from stereo_semantic_vo_tpu_torch.kernels import fast_score, hamming, matcher
+from stereo_semantic_vo_tpu_torch.ops import stereo
 from stereo_semantic_vo_tpu_torch.ops.orb import pyramid
 from stereo_semantic_vo_tpu_torch.tools.ba_launch_times import load_parent
 
@@ -55,8 +63,10 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    old, _ = load_parent(args.parent, ("kernels.fast_score", "kernels.matcher", "ops.orb"))
+    old, _ = load_parent(args.parent, ("kernels.fast_score", "kernels.matcher", "ops.orb", "ops.stereo",
+                                       "kernels.hamming"))
     pf, pm, porb = old["kernels.fast_score"], old["kernels.matcher"], old["ops.orb"]
+    pst, ph = old["ops.stereo"], old["kernels.hamming"]
     cfg = VOConfig.kitti("00")
     oc, reps = cfg.orb, args.reps
 
@@ -98,14 +108,35 @@ def main() -> None:
     def this_match():
         return [matcher.fused_best_match(*c) for c in calls]
 
+    # B2: the per-keypoint stereo stage of a frame, sparse_disparity in mode "pallas"
+    left, right, uv, kp_valid = stereo_inputs(cfg, dev, rng)
+    cam = Camera.from_config(cfg.camera, dev)
+    sc = dataclasses.replace(cfg.stereo, sparse_mode="pallas")
+
+    def parent_stereo():
+        return pst.sparse_disparity(left, right, uv, kp_valid, cam, sc)
+
+    def this_stereo():
+        return stereo.sparse_disparity(left, right, uv, kp_valid, cam, sc)
+
+    # B8: the two Hamming matrices of the matcher's shapes
+    def parent_hamming():
+        return [ph.hamming_distance_matrix_pallas(c[0], c[1]) for c in calls]
+
+    def this_hamming():
+        return [hamming.hamming_distance_matrix_pallas(c[0], c[1]) for c in calls]
+
     pa, th = parent_fast(), this_fast()
     pma, tma = parent_match(), this_match()
     torch.cuda.synchronize()
     agree = {
         "fast_maps": all(torch.equal(x, y) for a, c in zip(pa, th) for x, y in zip(a, c)),
         "matches": all(torch.equal(x, y) for a, c in zip(pma, tma) for x, y in zip(a, c)),
+        "stereo": all(torch.equal(x, y) for x, y in zip(parent_stereo(), this_stereo())),
+        "hamming": all(torch.equal(x, y) for x, y in zip(parent_hamming(), this_hamming())),
     }
-    work = {"fast_frame": (parent_fast, this_fast), "match_step": (parent_match, this_match)}
+    work = {"fast_frame": (parent_fast, this_fast), "match_step": (parent_match, this_match),
+            "stereo_stage": (parent_stereo, this_stereo), "hamming_matrix": (parent_hamming, this_hamming)}
     turns = {f"{name}{suffix}": [] for name in work for suffix in ("_parent_ms", "_ms")}
     for order in (("parent", "this"), ("this", "parent")):
         for who in order:

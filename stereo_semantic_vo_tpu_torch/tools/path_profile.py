@@ -35,7 +35,7 @@ from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline
 from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
 
 # the hand-written kernels, by a part of their names
-HAND_KERNELS = ("extract_patches", "stereo_costs", "fused_best_match", "fast_scores", "motion_hessian",
+HAND_KERNELS = ("extract_patches", "keypoint_stereo", "fused_best_match", "fast_scores", "motion_hessian",
                 "sgm_", "local_ba_blocks", "hamming_matrix")
 
 

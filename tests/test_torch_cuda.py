@@ -6,9 +6,10 @@ JAX, so it also runs on a machine that has only PyTorch, from the repo root:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: patches (all pyramid levels in one launch) and matcher outputs exact; stereo costs rtol 1e-5
-(the kernel sums in the plain version's order, so they are equal in
-practice); disparities atol 1e-4 with equal valid masks; SGM aggregation
+Tolerances: patches (all pyramid levels in one launch) and matcher outputs exact; stereo costs
+and the fused stereo step's disparity, depth, valid and cost exact (the
+kernel sums in the plain version's order and rounds each operation as
+PyTorch does); SGM aggregation
 exact (min, add and subtract in the plain version's order); the local-BA
 blocks rtol 3e-5, atol 1e-4 x max|plain|, cost rtol 1e-5, and the
 motion-only build rtol 2e-5, atol 1e-6 x max|plain|, cost rtol 1e-5
@@ -106,6 +107,8 @@ def test_patch_levels_kernel_matches_plain_at_the_level_shapes():
 
 
 def test_stereo_kernel_matches_plain():
+    """The raw costs (the TPU kernel's contract, the epilogue off) and the
+    fused step behind sparse_disparity, bit-equal to their plain versions."""
     dev = cuda_device()
     left, right = (t(a, dev) for a in two_plane_frame_source(H, W)(2))
     rng = np.random.RandomState(1)
@@ -115,14 +118,103 @@ def test_stereo_kernel_matches_plain():
     xr0 = t(np.r_[0, W - D - 6, rng.randint(0, W - D - 6 + 1, K - 2)].astype(np.int32), dev)
     args = (left, right, y0, xl0, xr0, D, r, 0.11, 0.89, 7.0, 2.0)
     got = _launched(TS.keypoint_stereo_costs, TS.keypoint_stereo_costs, *args)
-    torch.testing.assert_close(got, TS.keypoint_stereo_costs_plain(*args), rtol=1e-5, atol=0)
+    assert torch.equal(got, TS.keypoint_stereo_costs_plain(*args))
     uv = t(np.stack([rng.uniform(0, W, K), rng.uniform(0, H, K)], -1).astype(np.float32), dev)
     valid = torch.ones(K, dtype=torch.bool, device=dev)
     cam = Camera.from_config(CameraConfig(), dev)
-    a = sparse_disparity(left, right, uv, valid, cam, StereoConfig(sparse_mode="pallas"))
+    a = _launched(sparse_disparity, TS.keypoint_stereo_costs, left, right, uv, valid, cam,
+                  StereoConfig(sparse_mode="pallas"))
     b = sparse_disparity(left, right, uv, valid, cam, StereoConfig(sparse_mode="strips"))
-    assert torch.equal(a.valid, b.valid) and int(a.valid.sum()) > K // 2
-    torch.testing.assert_close(a.disparity, b.disparity, rtol=0, atol=1e-4)
+    assert int(a.valid.sum()) > K // 2
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def stereo_step_inputs(dev, K=512, D=48, r=3, seed=4):
+    """The smoke scene with a constant patch (every window cost ties), K
+    keypoints: the four corners, x < D + r (strip clamped at the left edge,
+    shift > 0), half-pixel coordinates (round half to even), in the patch,
+    ~10% not valid."""
+    left, right = two_plane_frame_source(H, W)(2)
+    left, right = left.copy(), right.copy()
+    left[100:140, 600:700] = 128.0
+    right[100:140, 500:700] = 128.0
+    rng = np.random.RandomState(seed)
+    uv = np.stack([rng.uniform(0, W, K), rng.uniform(0, H, K)], -1).astype(np.float32)
+    uv[:12] = [[0, 0], [W - 1, H - 1], [0, H - 1], [W - 1, 0], [3, 200], [D + r - 2, 50], [20.5, 80.5],
+               [60.5, 20.5], [61.5, 21.5], [650, 120], [660.5, 110], [690, 130]]
+    valid = rng.rand(K) > 0.1
+    valid[:12] = True
+    valid[12:16] = False
+    return [t(a, dev) for a in (left, right, uv, valid)]
+
+
+@pytest.mark.parametrize("D,r", [(48, 3), (64, 2)])
+def test_stereo_step_kernel_matches_plain(D, r):
+    """keypoint_disparity (one launch, the epilogue fused) against its plain
+    version: disparity, depth, valid and cost bit-equal, at kitti()'s
+    compile-time shape and at a runtime shape (r=2, D=64); the raw costs
+    of the runtime shape too."""
+    dev = cuda_device()
+    left, right, uv, valid = stereo_step_inputs(dev, D=D, r=r)
+    sc = StereoConfig()
+    bf = Camera.from_config(CameraConfig(), dev).bf
+    args = (left, right, uv, valid, bf, D, r, sc.color_weight, sc.grad_weight, sc.color_trunc, sc.grad_trunc,
+            sc.uniqueness_ratio, sc.min_disparity)
+    got = _launched(TS.keypoint_disparity, TS.keypoint_stereo_costs, *args)
+    want = TS.keypoint_disparity_plain(*args)
+    for name, x, y in zip(("disparity", "depth", "valid", "cost"), got, want):
+        assert torch.equal(x, y), name
+    ok = got[2].cpu().numpy()
+    assert ok.sum() > 200 and not ok[12:16].any() and not ok[9:12].any()  # invalid ones; the patch ties
+    y0, xl0, xr0, shift = TS.keypoint_origins(uv, H, W, D, r)
+    assert int(shift[4]) > 0 and int(shift[5]) > 0
+    raw = (left, right, y0, xl0, xr0, D, r, sc.color_weight, sc.grad_weight, sc.color_trunc, sc.grad_trunc)
+    assert torch.equal(_launched(TS.keypoint_stereo_costs, TS.keypoint_stereo_costs, *raw),
+                       TS.keypoint_stereo_costs_plain(*raw))
+
+
+def test_stereo_step_is_one_launch_two_allocations_and_capturable():
+    """The step puts one kernel on the device and nothing else, allocates
+    its two outputs and no more, and replays from a CUDA graph."""
+    dev = cuda_device()
+    left, right, uv, valid = stereo_step_inputs(dev)
+    sc = StereoConfig()
+    bf = Camera.from_config(CameraConfig(), dev).bf
+    args = (left, right, uv, valid, bf, 48, 3, sc.color_weight, sc.grad_weight, sc.color_trunc, sc.grad_trunc,
+            sc.uniqueness_ratio, sc.min_disparity)
+    names = _device_events(lambda: TS.keypoint_disparity(*args))
+    assert len(names) == 1 and "keypoint_stereo_kernel" in names[0], names
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    eager = TS.keypoint_disparity(*args)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 2
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        TS.keypoint_disparity(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = TS.keypoint_disparity(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    for x, y in zip(captured, eager):
+        assert torch.equal(x, y)
+
+
+def test_stereo_wrappers_refuse_what_the_kernel_cannot_take():
+    dev = cuda_device()
+    left, right, uv, valid = stereo_step_inputs(dev, K=16)
+    bf = Camera.from_config(CameraConfig(), dev).bf
+    rest = (0.11, 0.89, 7.0, 2.0, 0.95, 0.5)
+    with pytest.raises(ValueError, match="D=300"):
+        TS.keypoint_disparity(left, right, uv, valid, bf, 300, 3, *rest)
+    with pytest.raises(ValueError, match="uv"):
+        TS.keypoint_disparity(left, right, uv.double(), valid, bf, 48, 3, *rest)
+    with pytest.raises(ValueError, match="kp_valid"):
+        TS.keypoint_disparity(left, right, uv, valid.cpu(), bf, 48, 3, *rest)
+    with pytest.raises(ValueError, match="wider than the image"):
+        TS.keypoint_disparity(left[:, :40].contiguous(), right[:, :40].contiguous(), uv, valid, bf, 48, 3, *rest)
 
 
 @pytest.mark.parametrize("Q", [1, 512, 2048, 2049])
@@ -331,15 +423,28 @@ def test_motion_hessian_kernel_matches_plain(K):
     assert torch.equal(got[0], got[0].T)
 
 
-@pytest.mark.parametrize("Q", [512, 2048])
-def test_hamming_matrix_kernel_matches_plain(Q):
+@pytest.mark.parametrize("Q", [1, 512, 2048, 2049])
+@pytest.mark.parametrize("T", [1, 511, 512, 513])
+def test_hamming_matrix_kernel_matches_plain(Q, T):
+    """The matcher's shapes (Q=2048 and 512 against T=512) and ragged ones:
+    a T that is no multiple of the 4 columns a thread stores, a Q off the
+    block's rows."""
     dev = cuda_device()
-    rng = np.random.RandomState(Q)
-    q, tr = random_desc(rng, Q), random_desc(rng, 512)
-    tr[9] = q[4]
+    rng = np.random.RandomState(Q + T)
+    q, tr = random_desc(rng, Q), random_desc(rng, T)
+    qi, ti = min(4, Q - 1), min(9, T - 1)
+    tr[ti] = q[qi]
     args = (t(q, dev), t(tr, dev))
     got = _launched(TH.hamming_distance_matrix_pallas, TH.hamming_distance_matrix_pallas, *args)
-    assert torch.equal(got, TH.hamming_distance_matrix(*args)) and int(got[4, 9]) == 0
+    assert torch.equal(got, TH.hamming_distance_matrix(*args)) and int(got[qi, ti]) == 0
+
+
+def test_hamming_matrix_kernel_refuses_a_misaligned_view():
+    dev = cuda_device()
+    words = t(random_desc(np.random.RandomState(0), 65), dev).reshape(-1)
+    shifted = words[1 : 1 + 64 * 8].view(64, 8)  # contiguous, 4 bytes off a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        TH.hamming_distance_matrix_pallas(shifted, words[: 64 * 8].view(64, 8))
 
 
 def _ba_problem(dev, F, L, stereo, seed=0):
