@@ -22,7 +22,20 @@ Phases, each of which raises (exit code != 0) when it fails:
    on (``orb.fast_backend="pallas"``, ``ba.hessian_backend="pallas"``):
    ground truth, exact launch counts, its poses against the first path's,
    no host sync in a ``track_step``, a CPU rerun and the steady-state time
-   per frame.
+   per frame;
+8. the online detector (``zoo.kitti_tiny_v2`` with random weights from
+   seed 0) on frame 0 of the scene on the card against the CPU, timed
+   beside its bound, without a host sync;
+9. the fourth path, online detection (``VOPipeline(detector=...,
+   async_detect=True)``, as ``run.py --yolo-cfg`` drives it): detection of
+   frame t on a side CUDA stream beside ``track_step(t)``, its boxes used by
+   frame t+1.  Ground truth, the sparse path's launch counts, valid boxes
+   and culled points per frame, its poses against the sparse path fed its
+   own detections one frame late as offline boxes, no host sync in a
+   ``track_step`` with pending detections or in a frame's dispatch, a CPU
+   rerun with the detector on the CPU, the steady-state time per frame and
+   whether the side stream's kernels overlap the step's in one profiled
+   frame.
 
 Each kernel's line entry carries its time and its plain version's (CUDA
 events, wrapper included; for the two BA builds beside ``step_ms``, a
@@ -45,8 +58,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -66,6 +81,12 @@ BA_RTOL, BA_ATOL_REL, BA_COST_RTOL = 3e-5, 1e-4, 1e-5  # tests/test_ba_hessian.p
 MH_RTOL, MH_ATOL_REL, MH_COST_RTOL = 2e-5, 1e-6, 1e-5  # its motion-build bounds
 PATH_POS_TOL_M = 1e-3  # knob path vs first path: B4 is bit-equal, B5 sums in another order
 PATH_ROT_TOL_RAD = 1e-3
+N_ONLINE_FRAMES = 30  # GPU run of the online-detection path
+N_ONLINE_CPU_FRAMES = 5
+DET_RTOL, DET_ATOL_REL = 1e-4, 1e-4  # detector head maps, card vs CPU (cuDNN vs CPU convolutions, TF32 off)
+DET_BOX_TOL_PX = 1e-2                 # detected boxes, card vs CPU, where valid
+REPLAY_POS_TOL_M = 1e-6  # online path vs its detections replayed one frame late: expected bit for bit
+REPLAY_ROT_TOL_RAD = 1e-6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12    # float32 outside the tensor cores
 POPC_PER_CLOCK_PER_SM = 16
@@ -737,18 +758,19 @@ def rotation_angle(R: np.ndarray) -> float:
     return float(np.arctan2(np.linalg.norm(vee) / 2.0, (np.trace(R) - 1.0) / 2.0))
 
 
-def run_slice(cfg, dev, n: int, local_ba_every: int = 0):
+def run_slice(cfg, dev, n: int, local_ba_every: int = 0, detector=None, frame_source=None):
     from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline
 
-    pipe = VOPipeline(cfg, device=dev, local_ba_every=local_ba_every)
+    pipe = VOPipeline(cfg, device=dev, local_ba_every=local_ba_every, detector=detector)
     t0 = time.perf_counter()
-    pipe.run(frames(cfg, n))
+    pipe.run(frames(cfg, n) if frame_source is None else frame_source)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return pipe, time.perf_counter() - t0
 
 
-def drive_path(label: str, cfg, dev, n_frames: int, local_ba_every: int, kernels: dict, expected: dict):
+def drive_path(label: str, cfg, dev, n_frames: int, local_ba_every: int, kernels: dict, expected: dict,
+               detector=None):
     """Run one path on the card with every launch count set to 0 just
     before; check the counts, tracking and ground truth.  -> (pipe, wall
     seconds, poses, launches)."""
@@ -756,7 +778,7 @@ def drive_path(label: str, cfg, dev, n_frames: int, local_ba_every: int, kernels
 
     for k in kernels.values():
         k.launches = 0
-    pipe, wall = run_slice(cfg, dev, n_frames, local_ba_every)
+    pipe, wall = run_slice(cfg, dev, n_frames, local_ba_every, detector)
     launches = {name: k.launches for name, k in kernels.items()}
     check(launches == expected, f"{label}: kernel launches {launches}, expected {expected}")
     poses = np.stack([o.T_wc.cpu().numpy() for o in pipe.outputs])
@@ -808,6 +830,203 @@ def steady_state(label: str, pipe, n_frames: int, wall: float, card: str) -> tup
     say(f"{label} steady state: median {med:.3f} ms/frame, p90 {p90:.3f} ms (frames 5-{n_frames - 1}, host "
         f"clock, one-frame-deferred readback); whole run {wall:.2f} s incl. first-frame warm-up; card {card}")
     return med, p90
+
+
+class Recorder:
+    """A detector that keeps every ``Detections`` it hands out (device
+    tensors, in call order): the pipeline calls it once a frame."""
+
+    def __init__(self, det):
+        self.det, self.device, self.seen = det, det.device, []
+
+    def detect(self, img):
+        out = self.det.detect(img)
+        self.seen.append(out)
+        return out
+
+
+def frame_boxes(det, nb: int) -> tuple[np.ndarray, np.ndarray]:
+    """A frame's detections as the pipeline hands them to the step: cut or
+    zero-padded to ``nb`` boxes, on the host."""
+    boxes, valid = np.zeros((nb, 4), np.float32), np.zeros(nb, bool)
+    k = min(nb, det.boxes.shape[0])
+    boxes[:k], valid[:k] = det.boxes[:k].cpu().numpy(), det.valid[:k].cpu().numpy()
+    return boxes, valid
+
+
+def detector_work(det, img: torch.Tensor) -> tuple[float, float]:
+    """-> (FLOPs, bytes) of one ``detect``: the convolutions' FLOPs as
+    ``FlopCounterMode`` counts them on this run's shapes (2 a multiply-add);
+    the frame and the weights read once, the detections written once."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        det.detect(img)
+    weights = sum(b.numel() * b.element_size() for b in det.net.buffers())
+    return float(fc.get_total_flops()), float(img.numel() * 4 + weights + det.max_boxes * 4 * 7)
+
+
+def device_events(fn) -> tuple[int, int]:
+    """(kernels, copies and fills) on the device in one ``fn()``."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(n.startswith(("Memcpy", "Memset")) for n in names)
+    return len(names) - copies, copies
+
+
+def compare_detector(cfg, dev, card: str):
+    """The online detector on frame 0 of the scene, on the card and on the
+    CPU: head maps, valid masks and boxes; detect timed beside its bound,
+    and once under sync debug mode.  -> the card's detector."""
+    from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
+    from stereo_semantic_vo_tpu_torch.models import zoo
+
+    gpu, cpu = zoo.kitti_tiny_v2(device=dev), zoo.kitti_tiny_v2(device="cpu")
+    img = torch.from_numpy(two_plane_frame_source(cfg.camera.height, cfg.camera.width)(0)[0] / 255.0)
+    img_dev = img.to(dev)
+    err = 0.0
+    for (sec, a), (_, b) in zip(gpu.heads(img_dev), cpu.heads(img)):
+        a = a.cpu()
+        err = max(err, float((a - b).abs().max()))
+        check(torch.allclose(a, b, rtol=DET_RTOL, atol=DET_ATOL_REL * float(b.abs().max())),
+              f"detector {sec['type']} head differs on the card: max abs {float((a - b).abs().max())}")
+    got, want = gpu.detect(img_dev), cpu.detect(img)
+    v = want.valid
+    check(torch.equal(got.valid.cpu(), v), "detector valid masks differ between the card and the CPU")
+    check(bool(v.any()), "the detector found nothing on frame 0 at its default threshold")
+    box_err = float((got.boxes.cpu()[v] - want.boxes[v]).abs().max())
+    check(box_err <= DET_BOX_TOL_PX, f"detected boxes differ by {box_err} px between the card and the CPU")
+    ms = median_ms(lambda: gpu.detect(img_dev), reps=20)
+    dev_ms = device_ms(lambda: gpu.detect(img_dev), ())
+    n_kernels, n_copies = device_events(lambda: gpu.detect(img_dev))
+    t0 = time.perf_counter()
+    cpu.detect(img)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    flops, nbytes = detector_work(gpu, img_dev)
+    b = bound(nbytes, flops)
+    no_sync("one detect", lambda: gpu.detect(img_dev))
+    say(f"detector: kitti_tiny_v2 (352x352, random weights from seed 0) on a 1241x376 frame, card vs CPU: heads "
+        f"within rtol {DET_RTOL} / atol {DET_ATOL_REL} x max (max abs {err:.3g}), {int(v.sum())}/{len(v)} valid on "
+        f"both, boxes within {box_err:.3g} px; per detect {ms:.4f} ms ({dev_ms:.4f} ms on the device, {n_kernels} "
+        f"kernels and {n_copies} copies or fills), {cpu_ms:.1f} ms on the host CPU; bound {b['bound_ms'] * 1e3:.2f} "
+        f"us by {b['bound_by']} ({flops / 1e9:.3f} GFLOP at {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s float32, "
+        f"{nbytes / 1e6:.2f} MB at {HBM_BYTES_PER_S / 1e12} TB/s); card {card}")
+    return gpu
+
+
+def replay_frames(cfg, n: int, seen: list):
+    """``frames(cfg, n)`` with frame t's offline boxes replaced by the online
+    run's detections of frame t-1 (none on frame 0)."""
+    nb = cfg.semantic.max_boxes
+    for t, left, right, _, _, ts in frames(cfg, n):
+        boxes, valid = frame_boxes(seen[t - 1], nb) if t > 0 else (np.zeros((nb, 4), np.float32), np.zeros(nb, bool))
+        yield t, left, right, boxes, valid, ts
+
+
+def side_stream_overlap(pipe, cfg, t: int) -> dict:
+    """Profile frame t's ``process_frame``: the side stream's kernels (those
+    not on the stream of the step's patch kernel) against the main stream's,
+    from the trace's kernel intervals."""
+    left, right = next(f for f in frames(cfg, t + 1) if f[0] == t)[1:3]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        pipe.process_frame(left, right, None, None, t / cfg.camera.fps)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    main = {e["args"]["stream"] for e in events if "extract_patches" in e["name"]}
+    check(len(main) == 1, f"the step's patch kernel ran on streams {sorted(main)}")
+    ivs = {"main": [], "side": []}
+    for e in events:
+        ivs["main" if e["args"]["stream"] in main else "side"].append((e["ts"], e["ts"] + e["dur"]))
+    check(bool(ivs["side"]), "no kernel ran on a side stream in an online frame")
+
+    def union(iv):
+        out = []
+        for a, b in sorted(iv):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    m, sd = union(ivs["main"]), union(ivs["side"])
+    overlap = sum(max(0.0, min(b, d) - max(a, c)) for a, b in m for c, d in sd)
+    span = lambda iv: (min(a for a, _ in iv), max(b for _, b in iv))  # noqa: E731
+    (m0, m1), (s0, s1) = span(ivs["main"]), span(ivs["side"])
+    return {"main_kernels": len(ivs["main"]), "side_kernels": len(ivs["side"]),
+            "main_busy_ms": sum(b - a for a, b in m) / 1e3, "side_busy_ms": sum(b - a for a, b in sd) / 1e3,
+            "overlap_ms": overlap / 1e3, "side_span_ms": ((s0 - m0) / 1e3, (s1 - m0) / 1e3),
+            "main_span_ms": (0.0, (m1 - m0) / 1e3)}
+
+
+def drive_online(cfg, dev, det, kernels: dict, expected: dict, slice_steady, card: str) -> dict:
+    """The fourth path: ``VOPipeline(detector=det, async_detect=True)`` on
+    the card.  -> its launch counts."""
+    from stereo_semantic_vo_tpu_torch.engine.tracker import FrameInput, track_step
+    from stereo_semantic_vo_tpu_torch.models import zoo
+
+    n_o = N_ONLINE_FRAMES
+    rec = Recorder(det)
+    pipe, wall, poses, launches = drive_path("online", cfg, dev, n_o, 0, kernels, expected, detector=rec)
+    check(len(rec.seen) == n_o, f"online: {len(rec.seen)} detections for {n_o} frames")
+    n_valid = [int(d.valid.sum()) for d in rec.seen]
+    culled = [int(o.n_culled_dynamic) for o in pipe.outputs]
+    say(f"online: valid boxes detected per frame {n_valid}; frame t tracks with frame t-1's; culled points per "
+        f"frame {culled}")
+    check(any(n_valid[:-1]), "online: no frame was tracked with a valid box")
+    # the same frames through the sparse path, each with the online run's
+    # detections of the frame before as offline boxes
+    replay, _ = run_slice(cfg, dev, n_o, frame_source=replay_frames(cfg, n_o, rec.seen))
+    replay_poses = np.stack([o.T_wc.cpu().numpy() for o in replay.outputs])
+    dpos = float(np.abs(replay_poses[:, :3, 3] - poses[:, :3, 3]).max())
+    drot = max(rotation_angle(a[:3, :3].T @ b[:3, :3]) for a, b in zip(replay_poses, poses))
+    check(dpos <= REPLAY_POS_TOL_M and drot <= REPLAY_ROT_TOL_RAD,
+          f"online vs its detections replayed one frame late: poses differ by {dpos} m / {drot} rad")
+    say(f"online vs the sparse path fed its detections one frame late: {n_o} frames, max pose difference "
+        f"{dpos:.3g} m, {drot:.3g} rad; bit for bit: {bool(np.array_equal(replay_poses, poses))}")
+    # no sync: a step with the pending detections, and a frame's dispatch
+    # with the deferred readback of the frame before set aside
+    last = list(frames(cfg, n_o + 1))[-1]
+    boxes, valid = pipe._det_pending
+    frame = FrameInput(*(torch.from_numpy(a).to(dev) for a in last[1:3]), boxes, valid)
+    no_sync("one online track_step with pending detections", lambda: track_step(pipe.state, frame, cfg))
+    held = []
+    finalize, pipe._finalize = pipe._finalize, lambda out, ts: held.append((out, ts))
+    no_sync("one online process_frame (stale boxes awaited, detection queued on the side stream)",
+            lambda: pipe.process_frame(last[1], last[2], None, None, last[5]))
+    pipe._finalize = finalize
+    for item in held:
+        finalize(*item)
+    # the first frames on the host CPU, the detector there too
+    cpu_rec = Recorder(zoo.kitti_tiny_v2(device="cpu"))
+    n_c = N_ONLINE_CPU_FRAMES
+    cpu_pipe, cpu_wall = run_slice(cfg, torch.device("cpu"), n_c, detector=cpu_rec)
+    cpu_poses = np.stack([o.T_wc.numpy() for o in cpu_pipe.outputs])
+    dpos = np.abs(cpu_poses[:, :3, 3] - poses[:n_c, :3, 3]).max()
+    drot = max(rotation_angle(a[:3, :3].T @ b[:3, :3]) for a, b in zip(cpu_poses, poses))
+    cpu_valid = [int(d.valid.sum()) for d in cpu_rec.seen]
+    check(dpos <= CPU_POS_TOL_M and drot <= CPU_ROT_TOL_RAD, f"online: CPU vs GPU poses differ by {dpos} m / {drot} rad")
+    check(cpu_valid == n_valid[:n_c], f"online: valid boxes per frame {cpu_valid} on the CPU, {n_valid[:n_c]} on the card")
+    say(f"online cpu rerun: {n_c} frames with the detector on the CPU, max pose difference {dpos:.2e} m, {drot:.2e} "
+        f"rad, valid boxes per frame equal ({cpu_wall / n_c * 1000:.1f} ms/frame on the host CPU)")
+    steady = steady_state("online", pipe, n_o, wall, card)
+    say("online beside the sparse path in this call: median / p90 {:.3f} / {:.3f} against {:.3f} / {:.3f} "
+        "ms/frame".format(*steady, *slice_steady))
+    ov = side_stream_overlap(pipe, cfg, n_o + 1)
+    say(f"online profiled frame: main stream {ov['main_kernels']} kernels, {ov['main_busy_ms']:.3f} ms busy over "
+        f"[0, {ov['main_span_ms'][1]:.3f}] ms; side stream {ov['side_kernels']} kernels, {ov['side_busy_ms']:.3f} ms "
+        f"busy over [{ov['side_span_ms'][0]:.3f}, {ov['side_span_ms'][1]:.3f}] ms; kernels of the two streams run "
+        f"at the same time for {ov['overlap_ms']:.3f} ms: detection "
+        f"{'overlaps' if ov['overlap_ms'] > 0 else 'does not overlap'} track_step")
+    return launches
 
 
 def main() -> None:
@@ -908,6 +1127,14 @@ def main() -> None:
     knob_steady = steady_state("knob path", pipe, n_k, wall, card)
     say("knob path beside the first path in this call: median / p90 {:.3f} / {:.3f} against {:.3f} / {:.3f} "
         "ms/frame".format(*knob_steady, *slice_steady))
+
+    # 8-9. the online detector, then the fourth path: online detection one
+    # frame late on a side stream, with the sparse path's kernel launches
+    det = compare_detector(cfg, dev, card)
+    n_o = N_ONLINE_FRAMES
+    expected = {"extract_patches": n_o, "keypoint_stereo_costs": n_o,
+                "fused_best_match": 2 * (n_o - 1), "sgm_aggregate": 0, "local_ba_blocks": 0, **off}
+    by_path["online"] = drive_online(cfg, dev, det, kernels, expected, slice_steady, card)
 
     for e in entries:
         e["launches"] = sum(counts[e["name"]] for counts in by_path.values())

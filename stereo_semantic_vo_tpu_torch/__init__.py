@@ -10,8 +10,12 @@ Layout (each module mirrors its counterpart in the JAX package):
              beside its plain PyTorch version, and the nvcc build
   ops/       ORB (upright BRIEF), sparse stereo, epipolar test, RANSAC PnP,
              motion-only BA
-  engine/    tracker state, init/track steps, sequence pipeline, trajectories
-  io/        KITTI loading and the procedural two-plane sequence
+  models/    the cfg-driven YOLO detector (cuDNN convolutions, decode, NMS)
+             and its model zoo
+  engine/    tracker state, init/track steps, sequence pipeline (online
+             detection one frame late on a side CUDA stream), trajectories
+  io/        KITTI loading, the procedural two-plane sequence, darknet cfg
+             and weights
   eval/      ATE / RPE
   interop.py config and state exchange with the JAX package (numpy only)
   run.py     the KITTI command line

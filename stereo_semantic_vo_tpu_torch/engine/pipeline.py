@@ -1,14 +1,25 @@
-"""Sequence driver: load frames, run the tracking step, write trajectories,
-report per-frame times.
+"""Sequence driver: load frames, obtain detection boxes (offline files or
+the online YOLO detector), run the tracking step, write trajectories, report
+per-frame times.
 
 Port of ``stereo_semantic_vo_tpu.engine.pipeline.VOPipeline`` without the
-online detector (ROADMAP A10) and without the mesh-sharded window BA
-(ROADMAP A11): those arguments raise ``NotImplementedError``.  With
-``local_ba_every=N`` the window BA (engine/window_ba.py) refines the state
-every N-th frame once the window is full.  Frame decode runs on a prefetch
-thread; frames are copied to the device from pinned memory without
-blocking; frame t-1's outputs are read back after frame t is dispatched, so
-the host never waits on the step it just queued.
+mesh-sharded window BA (ROADMAP A5): ``ba_mesh`` raises
+``NotImplementedError``.  With ``local_ba_every=N`` the window BA
+(engine/window_ba.py) refines the state every N-th frame once the window is
+full.  Frame decode runs on a prefetch thread; frames are copied to the
+device from pinned memory without blocking; frame t-1's outputs are read
+back after frame t is dispatched, so the host never waits on the step it
+just queued.
+
+With a ``detector`` (models/yolo.YoloDetector on the pipeline's device) and
+``async_detect=True``, frame t tracks with frame t-1's detections and frame
+0 with none: the one-frame staleness of the reference's detector thread
+(src/semantic.cc).  On a card, detection of frame t is queued on a side CUDA
+stream as soon as left(t) is uploaded, ahead of ``track_step(t)``, whose
+kernels never wait for it; frame t+1's step makes the main stream wait on
+the event detection recorded.  The host waits on neither.  On the CPU the same calls run in order.  With
+``async_detect=False`` each frame is detected, read back and tracked with
+its own boxes, as the reference does.
 """
 
 from __future__ import annotations
@@ -61,15 +72,26 @@ class VOPipeline:
         local_ba_every: int = 0,
         ba_mesh=None,
         reinit_after_lost: int = 3,
+        async_detect: bool = True,
     ):
-        if detector is not None:
-            raise NotImplementedError("online detection is not ported yet (ROADMAP A10)")
         if ba_mesh is not None:
-            raise NotImplementedError("the sharded window BA is not ported yet (ROADMAP A11)")
+            raise NotImplementedError("the sharded window BA is not ported yet (ROADMAP A5)")
         self.cfg = cfg
         self.local_ba_every = local_ba_every
         self.device = torch.device(device)
         self.state = init_state(cfg, self.device)
+        self.detector = detector
+        if detector is not None and detector.device != self.state.T_cw.device:
+            raise ValueError(f"the detector runs on {detector.device}, the pipeline on {self.state.T_cw.device}")
+        self.async_detect = async_detect
+        # frame t's detections (max_boxes, 4) / (max_boxes,), used by frame t+1
+        self._det_pending: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._det_done: torch.cuda.Event | None = None
+        self._det_stream = (
+            torch.cuda.Stream(self.device)
+            if detector is not None and async_detect and self.device.type == "cuda"
+            else None
+        )
         # tracking-lost recovery: reseed the map after N consecutive PnP
         # failures (0 disables)
         self.reinit_after_lost = reinit_after_lost
@@ -92,6 +114,51 @@ class VOPipeline:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
+    def _fit_boxes(self, boxes: torch.Tensor, valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Cut or zero-pad detections to ``cfg.semantic.max_boxes``."""
+        nb, n = self.cfg.semantic.max_boxes, boxes.shape[0]
+        if n >= nb:
+            return boxes[:nb], valid[:nb]
+        return (torch.cat([boxes, boxes.new_zeros((nb - n, 4))]),
+                torch.cat([valid, valid.new_zeros((nb - n,))]))
+
+    def _detections(self, left: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        det = self.detector.detect(left / 255.0)
+        return self._fit_boxes(det.boxes, det.valid)
+
+    def _detect(self, left: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+        """Detect on this frame and read the boxes back, as the reference's
+        synchronous mode does."""
+        return tuple(x.cpu().numpy() for x in self._detections(left))
+
+    def _detect_async(self, left: torch.Tensor) -> None:
+        """Queue detection of this frame; the next frame consumes it."""
+        stream = self._det_stream
+        if stream is None:
+            self._det_pending = self._detections(left)
+            return
+        stream.wait_stream(torch.cuda.current_stream(self.device))  # left's upload
+        with torch.cuda.stream(stream):
+            self._det_pending = self._detections(left)
+            self._det_done = torch.cuda.Event()
+            self._det_done.record(stream)
+        left.record_stream(stream)
+
+    def _stale_boxes(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The previous frame's detections (none on the first frame), ready
+        for the main stream once it has waited on their event."""
+        if self._det_pending is None:
+            nb = self.cfg.semantic.max_boxes
+            return (torch.zeros((nb, 4), dtype=torch.float32, device=self.device),
+                    torch.zeros((nb,), dtype=torch.bool, device=self.device))
+        boxes, valid = self._det_pending
+        if self._det_done is not None:
+            main = torch.cuda.current_stream(self.device)
+            main.wait_event(self._det_done)
+            boxes.record_stream(main)
+            valid.record_stream(main)
+        return boxes, valid
+
     def process_frame(
         self,
         left: np.ndarray,
@@ -100,16 +167,26 @@ class VOPipeline:
         boxes_valid: np.ndarray | None,
         timestamp: float,
     ):
+        """Track one stereo pair.  ``boxes`` None means: detect with the
+        pipeline's detector, or no boxes without one."""
         t0 = time.perf_counter()
-        if boxes is None:
-            nb = self.cfg.semantic.max_boxes
-            boxes = np.zeros((nb, 4), np.float32)
-            boxes_valid = np.zeros(nb, bool)
+        left_dev = self._to_device(np.asarray(left, np.float32))
+        if boxes is None and self.detector is not None and self.async_detect:
+            boxes_dev, valid_dev = self._stale_boxes()
+            self._detect_async(left_dev)
+        else:
+            if boxes is None and self.detector is not None:
+                boxes, boxes_valid = self._detect(left_dev)
+            elif boxes is None:
+                nb = self.cfg.semantic.max_boxes
+                boxes, boxes_valid = np.zeros((nb, 4), np.float32), np.zeros(nb, bool)
+            boxes_dev = self._to_device(np.asarray(boxes, np.float32))
+            valid_dev = self._to_device(np.asarray(boxes_valid, bool))
         frame = FrameInput(
-            left=self._to_device(np.asarray(left, np.float32)),
+            left=left_dev,
             right=self._to_device(np.asarray(right, np.float32)),
-            boxes=self._to_device(np.asarray(boxes, np.float32)),
-            boxes_valid=self._to_device(np.asarray(boxes_valid, bool)),
+            boxes=boxes_dev,
+            boxes_valid=valid_dev,
         )
         reseed = (
             self.reinit_after_lost > 0 and self._consecutive_lost >= self.reinit_after_lost
@@ -161,6 +238,8 @@ class VOPipeline:
         (io/kitti.iter_frames format).  Returns a summary dict."""
         it = _prefetch(frames) if prefetch else frames
         for _, left, right, boxes, bv, ts in it:
+            if self.detector is not None:  # online detection replaces the offline boxes
+                boxes, bv = None, None
             self.process_frame(left, right, boxes, bv, ts)
         self.flush()
         self.writer.close()

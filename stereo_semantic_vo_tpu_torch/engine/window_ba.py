@@ -15,7 +15,7 @@ The reference's ``lax.cond`` on "at least 8 landmarks" is a device
 predicate; here the solve always runs and its result is kept or dropped by
 ``torch.where``, as the reference's sharded variant does, so refinement
 never reads back to the host.  The reference's ``WindowBA``, the host
-wrapper of the mesh-sharded solve, is not ported (ROADMAP A11):
+wrapper of the mesh-sharded solve, is not ported (ROADMAP A5):
 ``VOPipeline(ba_mesh=...)`` raises.
 """
 

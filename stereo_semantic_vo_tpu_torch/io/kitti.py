@@ -8,7 +8,7 @@ shape padded box arrays for the tracker.
 
 Copied from ``stereo_semantic_vo_tpu.io.kitti``.  Decoding happens on the
 host with Pillow; the reference's optional native C++ prefetcher is not
-ported yet (ROADMAP A12), and the pipeline's prefetch thread overlaps decode
+ported yet (ROADMAP A6), and the pipeline's prefetch thread overlaps decode
 with device compute instead.
 """
 

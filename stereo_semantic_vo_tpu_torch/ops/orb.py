@@ -190,7 +190,7 @@ def extract_orb(image: torch.Tensor, cfg: ORBConfig) -> Keypoints:
     Returns a fixed-capacity :class:`Keypoints` (K = cfg.max_keypoints),
     ranked by response, with validity masks for unfilled slots."""
     if cfg.steer:
-        raise NotImplementedError("steered BRIEF (ORBConfig.steer=True) is not ported yet (ROADMAP A2)")
+        raise NotImplementedError("steered BRIEF (ORBConfig.steer=True) is not ported yet (ROADMAP A3)")
     dev = image.device
     # "auto" keeps the rolled ring everywhere, as the reference's does
     fused = resolve_backend(cfg.fast_backend, dev, "xla", "xla") == "pallas"

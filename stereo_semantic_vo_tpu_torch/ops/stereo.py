@@ -11,7 +11,7 @@ CPU tensor, its plain version) and "strips" runs the plain version
 directly; "auto" picks "pallas" on a CUDA device and "strips" on the CPU.  "dense" solves the full dense disparity
 (``ops/dense_stereo.py``) and samples it at the keypoints, as the
 reference's frame.cc does with MSA.  The cost-volume modes "volume" and
-"volume2" are not ported yet (ROADMAP A3).
+"volume2" are not ported yet (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def sparse_disparity(
     keypoint pixel coords (x, y) in the left image."""
     mode = resolve_backend(cfg.sparse_mode, left.device, "pallas", "strips")
     if mode not in ("pallas", "strips", "dense"):
-        raise NotImplementedError(f"sparse_mode={mode!r} is not ported yet (ROADMAP A3)")
+        raise NotImplementedError(f"sparse_mode={mode!r} is not ported yet (ROADMAP A4)")
     if mode == "dense":
         return _dense_at_keypoints(left, right, uv, kp_valid, cam, cfg)
     step = keypoint_disparity if mode == "pallas" else keypoint_disparity_plain

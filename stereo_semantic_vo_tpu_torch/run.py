@@ -1,16 +1,24 @@
 """CLI driver for the PyTorch port, with the flags of
 ``python -m stereo_semantic_vo_tpu.run``.
 
-Example:
+Examples:
+  # offline semantic boxes (the reference's shipped mode)
   python -m stereo_semantic_vo_tpu_torch.run --sequence /data/kitti/odometry/01 \
       --seq-id 01 --boxes-dir /data/boxes/0.05results --out out/
+
+  # online YOLO detection, one frame late on a side CUDA stream
+  python -m stereo_semantic_vo_tpu_torch.run --sequence ... --yolo-cfg yolov2-tiny.cfg \
+      --yolo-weights yolov2-tiny.weights
 
 ``--device`` (default ``cuda``) picks where it runs, as ``JAX_PLATFORMS``
 does for the reference; without a CUDA device ``--device cuda`` exits with
 an error.  ``--dense-stereo`` samples the dense SGM disparity at the
 keypoints and ``--local-ba N`` refines the 4-frame window every N frames;
-on a CUDA device both run on the package's kernels.  Online detection
-(--yolo-cfg / --yolo-weights) is not ported yet and exits with an error.
+on a CUDA device both run on the package's kernels.  ``--yolo-cfg``
+detects online with a darknet cfg (models/yolo.YoloDetector) on the same
+device, at ``cfg.semantic``'s threshold, NMS IoU and box count, with the
+weights of ``--yolo-weights`` or, without them, random weights; the
+detections replace the offline boxes.
 """
 
 from __future__ import annotations
@@ -20,11 +28,6 @@ import dataclasses
 import json
 
 import torch
-
-_NOT_PORTED = {
-    "yolo_cfg": "--yolo-cfg (online detection, ROADMAP A10)",
-    "yolo_weights": "--yolo-weights (online detection, ROADMAP A10)",
-}
 
 
 def main() -> None:
@@ -45,9 +48,6 @@ def main() -> None:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="run on the first CUDA device (default) or on the CPU")
     args = p.parse_args()
-    for key, what in _NOT_PORTED.items():
-        if getattr(args, key):
-            p.error(f"{what} is not ported to the PyTorch package yet")
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("--device cuda: no CUDA device is available (pass --device cpu to run on the CPU)")
 
@@ -60,9 +60,30 @@ def main() -> None:
         cfg = dataclasses.replace(cfg, use_semantics=False)
     if args.dense_stereo:
         cfg = dataclasses.replace(cfg, stereo=dataclasses.replace(cfg.stereo, sparse_mode="dense"))
+
+    detector = None
+    if args.yolo_cfg:
+        from stereo_semantic_vo_tpu_torch.models.yolo import YoloDetector
+
+        with open(args.yolo_cfg) as f:
+            cfg_text = f.read()
+        weights = None
+        if args.yolo_weights:
+            with open(args.yolo_weights, "rb") as f:
+                weights = f.read()
+        detector = YoloDetector(
+            cfg_text,
+            weights_bytes=weights,
+            conf_threshold=cfg.semantic.online_conf_threshold,
+            nms_iou=cfg.semantic.nms_iou,
+            max_boxes=cfg.semantic.max_boxes,
+            device=args.device,
+        )
+
     paths = kitti.load_sequence_paths(args.sequence)
     frames = kitti.iter_frames(paths, args.boxes_dir, cfg.semantic.max_boxes, args.max_frames)
-    summary = VOPipeline(cfg, device=args.device, out_dir=args.out, local_ba_every=args.local_ba).run(frames)
+    pipe = VOPipeline(cfg, device=args.device, detector=detector, out_dir=args.out, local_ba_every=args.local_ba)
+    summary = pipe.run(frames)
     report = {k: v for k, v in summary.items() if k != "positions"}
     report["device"] = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
 

@@ -1,13 +1,15 @@
 """Host ms/frame and device busy time of one tracking path on one CUDA
 card, for whichever checkout of the port is first on ``sys.path``:
 
-    PYTHONPATH=<checkout> python3 stereo_semantic_vo_tpu_torch/tools/path_profile.py --path {sparse,dense,knob} --label NAME
+    PYTHONPATH=<checkout> python3 stereo_semantic_vo_tpu_torch/tools/path_profile.py --path {sparse,dense,knob,online} --label NAME
 
 ``--path dense`` (the default) is the dense + window-BA path
 (``sparse_mode="dense"``, window BA every frame); ``--path sparse`` the
 main path, ``VOConfig.kitti()`` as it is; ``--path knob`` the sparse path
 with the FAST kernel and the fused motion-BA build (``orb.fast_backend``
-and ``ba.hessian_backend`` = "pallas").  It drives
+and ``ba.hessian_backend`` = "pallas"); ``--path online`` the sparse path
+with online detection (``zoo.kitti_tiny_v2`` with random weights on a
+side CUDA stream, one frame late, in place of the offline boxes).  It drives
 ``VOPipeline`` of ``VOConfig.kitti("00")`` over the procedural 1241x376
 two-plane sequence (a detection box every fifth frame, as
 ``chip_smoke.py`` feeds it): ``--warmup`` frames, then ``--frames`` frames
@@ -33,6 +35,7 @@ import torch
 from stereo_semantic_vo_tpu_torch.core.config import VOConfig
 from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline
 from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
+from stereo_semantic_vo_tpu_torch.models import zoo
 
 # the hand-written kernels, by a part of their names
 HAND_KERNELS = ("extract_patches", "keypoint_stereo", "fused_best_match", "fast_scores", "motion_hessian",
@@ -41,7 +44,7 @@ HAND_KERNELS = ("extract_patches", "keypoint_stereo", "fused_best_match", "fast_
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("sparse", "dense", "knob"), default="dense")
+    ap.add_argument("--path", choices=("sparse", "dense", "knob", "online"), default="dense")
     ap.add_argument("--label", default="")
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--frames", type=int, default=10)
@@ -49,7 +52,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("path_profile: needs a CUDA card")
     k = VOConfig.kitti("00")
-    if args.path == "sparse":
+    if args.path in ("sparse", "online"):
         cfg = k
     elif args.path == "dense":
         cfg = dataclasses.replace(k, stereo=dataclasses.replace(k.stereo, sparse_mode="dense"))
@@ -57,11 +60,16 @@ def main() -> None:
         cfg = dataclasses.replace(k, orb=dataclasses.replace(k.orb, fast_backend="pallas"),
                                   ba=dataclasses.replace(k.ba, hessian_backend="pallas"))
     src = two_plane_frame_source(cfg.camera.height, cfg.camera.width)
-    pipe = VOPipeline(cfg, device="cuda", local_ba_every=1 if args.path == "dense" else 0, write_trajectory=False)
+    detector = zoo.kitti_tiny_v2(device="cuda") if args.path == "online" else None
+    pipe = VOPipeline(cfg, device="cuda", local_ba_every=1 if args.path == "dense" else 0, write_trajectory=False,
+                      detector=detector)
     nb = cfg.semantic.max_boxes
 
     def feed(t: int) -> None:
         left, right = src(t)
+        if detector is not None:
+            pipe.process_frame(left, right, None, None, t / cfg.camera.fps)
+            return
         boxes, valid = np.zeros((nb, 4), np.float32), np.zeros(nb, bool)
         if t % 5 == 2:
             boxes[0], valid[0] = [500.0, 60.0, 700.0, 300.0], True

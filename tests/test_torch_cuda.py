@@ -14,7 +14,9 @@ exact (min, add and subtract in the plain version's order); the local-BA
 blocks rtol 3e-5, atol 1e-4 x max|plain|, cost rtol 1e-5, and the
 motion-only build rtol 2e-5, atol 1e-6 x max|plain|, cost rtol 1e-5
 (tests/test_ba_hessian.py's bounds: float32 sums in another order); FAST
-scores and the Hamming matrix exact."""
+scores and the Hamming matrix exact; the online detector on the card
+against the CPU (cuDNN against the CPU's convolutions, TF32 off): head maps
+rtol 1e-4, atol 1e-4 x max|CPU|, boxes 1e-2 px where valid, valid equal."""
 
 import dataclasses
 
@@ -24,7 +26,9 @@ import torch
 
 from stereo_semantic_vo_tpu_torch.core.camera import Camera
 from stereo_semantic_vo_tpu_torch.core.config import CameraConfig, StereoConfig, VOConfig
+from stereo_semantic_vo_tpu_torch.engine import pipeline as TPL
 from stereo_semantic_vo_tpu_torch.engine import tracker as TT
+from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline
 from stereo_semantic_vo_tpu_torch.engine.state import init_state
 from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
 from stereo_semantic_vo_tpu_torch.engine.window_ba import refine_state
@@ -37,6 +41,7 @@ from stereo_semantic_vo_tpu_torch.kernels import sgm_scan as TG
 from stereo_semantic_vo_tpu_torch.ops.dense_stereo import cost_volume, edge_p2_planes
 from stereo_semantic_vo_tpu_torch.ops.orb import extract_orb, pyramid
 from stereo_semantic_vo_tpu_torch.kernels import sparse_stereo as TS
+from stereo_semantic_vo_tpu_torch.models import zoo
 from stereo_semantic_vo_tpu_torch.ops.stereo import sparse_disparity
 
 # self-contained (no `tests.` imports): where a site package is named
@@ -680,3 +685,111 @@ def test_track_step_reads_nothing_back(knobs):
     n_fast, n_motion = (1, cfg.ba.iterations) if knobs else (0, 0)  # B4: one launch for the 3 levels
     assert TF.fast_scores_levels.launches == launches[0] + n_fast
     assert TB.motion_hessian_gradient.launches == launches[1] + n_motion
+
+
+# --- the online detector (models/yolo.py) and its side stream (engine/pipeline.py)
+
+DET_RTOL, DET_ATOL_REL, DET_BOX_TOL_PX = 1e-4, 1e-4, 1e-2
+
+
+def _smoke_gray(i=0):
+    return torch.from_numpy(two_plane_frame_source(H, W)(i)[0] / 255.0)
+
+
+@pytest.mark.parametrize("which", ["kitti_tiny_v2", "tiny_v3"])
+def test_detector_on_the_card_matches_the_cpu(which):
+    """The same random weights on the card (cuDNN, TF32 off) and on the CPU:
+    head maps within rtol 1e-4 / atol 1e-4 x max|CPU|; kitti_tiny_v2's
+    detections on a 1241x376 frame with equal valid masks and boxes within
+    1e-2 px where valid."""
+    dev = cuda_device()
+    gpu, cpu = getattr(zoo, which)(device=dev), getattr(zoo, which)(device="cpu")
+    img = _smoke_gray()
+    for (_, a), (_, b) in zip(gpu.heads(img.to(dev)), cpu.heads(img)):
+        a = a.cpu()
+        assert torch.allclose(a, b, rtol=DET_RTOL, atol=DET_ATOL_REL * float(b.abs().max()))
+    if which == "kitti_tiny_v2":
+        got, want = gpu.detect(img.to(dev)), cpu.detect(img)
+        assert torch.equal(got.valid.cpu(), want.valid) and bool(want.valid.any())
+        v = want.valid
+        assert float((got.boxes.cpu()[v] - want.boxes[v]).abs().max()) <= DET_BOX_TOL_PX
+
+
+def _online_cfg(max_boxes=32):
+    k = VOConfig.kitti()
+    return dataclasses.replace(
+        k, camera=CameraConfig(width=320, height=240),
+        orb=dataclasses.replace(k.orb, max_keypoints=256, n_levels=3),
+        semantic=dataclasses.replace(k.semantic, max_boxes=max_boxes),
+    )
+
+
+def test_detect_and_an_async_dispatch_read_nothing_back():
+    """``detect`` and a frame's ``process_frame`` with a pending detection
+    (the main stream waits on its event, the next detection is queued on the
+    side stream) run under sync debug mode; the deferred readback of the
+    frame before, the pipeline's one sync point, is set aside for it."""
+    dev = cuda_device()
+    det = zoo.kitti_tiny_v2(conf_threshold=0.01, device=dev)
+    img = _smoke_gray().to(dev)
+    det.detect(img)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = det.detect(img)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(out.valid.any())
+    cfg = _online_cfg()
+    src = two_plane_frame_source(240, 320)
+    pipe = VOPipeline(cfg, device=dev, detector=det, write_trajectory=False)
+    pipe.process_frame(*src(0), None, None, 0.0)
+    held = []
+    pipe._finalize = lambda out, ts: held.append(out)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipe.process_frame(*src(1), None, None, 0.1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert len(held) == 1 and bool(pipe._pending[0].pnp_ok)
+
+
+class _SlowDetector:
+    """A detector whose every call first keeps its stream busy for ~50 ms."""
+
+    def __init__(self, det):
+        self.det, self.device = det, det.device
+
+    def detect(self, img):
+        torch.cuda._sleep(100_000_000)
+        return self.det.detect(img)
+
+
+def test_side_stream_detection_is_awaited_by_the_next_frame(monkeypatch):
+    """Frame t+1's step sees detect(frame t) although detection, on its side
+    stream, ends long after the main stream reached the step: the main
+    stream waits on detection's event, and the boxes are not reused early."""
+    dev = cuda_device()
+    nb = 128
+    det = zoo.kitti_tiny_v2(conf_threshold=0.01, max_boxes=nb, device=dev)
+    cfg = _online_cfg(nb)
+    src = two_plane_frame_source(240, 320)
+    seen = []
+    step = TPL.track_step
+
+    def track_step(state, frame, cfg):
+        seen.append((frame.boxes.clone(), frame.boxes_valid.clone()))
+        return step(state, frame, cfg)
+
+    monkeypatch.setattr(TPL, "track_step", track_step)
+    pipe = VOPipeline(cfg, device=dev, detector=_SlowDetector(det), write_trajectory=False)
+    for i in range(4):
+        pipe.process_frame(*src(i), None, None, 0.1 * i)
+    pipe.flush()
+    assert len(seen) == 3
+    for i, (boxes, valid) in enumerate(seen):
+        want = det.detect(torch.from_numpy(src(i)[0]).to(dev) / 255.0)
+        assert torch.equal(valid, want.valid) and bool(valid.any())
+        assert float((boxes[valid] - want.boxes[want.valid]).abs().max()) <= DET_BOX_TOL_PX

@@ -107,7 +107,7 @@ def test_extract_orb_three_levels_agree(img):
 
 
 def test_unported_orb_options_raise(img):
-    with pytest.raises(NotImplementedError, match="A2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         TO.extract_orb(t(img), TORB(steer=True))
 
 

@@ -193,7 +193,7 @@ def test_keypoint_disparity_matches_jax_strips_at_other_windows(D_, r):
 def test_unported_modes_raise(mode):
     left, right = _scene()
     uv, valid = _keypoints(*left.shape, K=8)
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         t_sparse(t(left), t(right), t(uv), t(valid), TCam.from_config(CameraConfig(), "cpu"), TSC(sparse_mode=mode))
 
 
