@@ -35,7 +35,25 @@ Phases, each of which raises (exit code != 0) when it fails:
    ``track_step`` with pending detections or in a frame's dispatch, a CPU
    rerun with the detector on the CPU, the steady-state time per frame and
    whether the side stream's kernels overlap the step's in one profiled
-   frame.
+   frame;
+10. the fifth path, steered BRIEF (``VOConfig.kitti("00")`` with
+   ``orb.steer=True``, the JAX package's default descriptor): ground truth,
+   exact launch counts, no host sync in a ``track_step``, a CPU rerun and
+   the steady-state time per frame beside the sparse path's;
+11. the whole-image stereo modes "volume" and "volume2" on a frame's 512
+   ORB keypoints against "strips" and B2, timed, with the kernels a
+   "volume" call launches;
+12. the data-parallel tracker (``parallel/dp_tracker``) at B = 1, 2 and 4
+   streams on the card, each on its own CUDA stream, on offset copies of
+   the scene with staggered starts: exact launch counts, ground truth,
+   every stream bit for bit its own single-stream run, no host sync in a
+   step, frames/s, ms a frame per stream and the device's idle share;
+13. the landmark-sharded window BA over NCCL at world size 1, in this
+   process: the solver against ``ops/local_ba.local_ba`` (F=4, L=2048,
+   stereo edges) and ``VOPipeline(ba_mesh=..., local_ba_every=1)``
+   against the pipeline without a mesh, no host sync in a sharded refine;
+14. the replicated detector (``parallel/semantic_head``) on two frames
+   against ``YoloDetector.detect`` of each.
 
 Each kernel's line entry carries its time and its plain version's (CUDA
 events, wrapper included; for the two BA builds beside ``step_ms``, a
@@ -87,6 +105,16 @@ DET_RTOL, DET_ATOL_REL = 1e-4, 1e-4  # detector head maps, card vs CPU (cuDNN vs
 DET_BOX_TOL_PX = 1e-2                 # detected boxes, card vs CPU, where valid
 REPLAY_POS_TOL_M = 1e-6  # online path vs its detections replayed one frame late: expected bit for bit
 REPLAY_ROT_TOL_RAD = 1e-6
+N_STEER_FRAMES = 30   # GPU run of the steered path
+N_STEER_CPU_FRAMES = 5
+VOLUME_DISP_TOL_PX = 1e-4  # volume modes vs strips / B2 where the strip is not clamped
+VOLUME_COST_RTOL = 1e-5    # ... and their costs where it is (strips reads disparity d at d - shift)
+N_DP_STEPS = 12       # steps of the data-parallel tracker at each B
+DP_TIMED_FROM = 4     # steps before it warm up (and hold the staggered starts)
+DP_OFFSET = 2         # stream b sees the scene's frame t + 2b
+DP_BATCHES = (1, 2, 4)
+SHARDED_COST_RTOL, SHARDED_POSE_ATOL, SHARDED_POINT_MEDIAN_M = 1e-3, 5e-3, 0.05  # tests/test_sharded_ba.py:51-55
+N_SHARDED_FRAMES = 8  # the pipeline with a mesh, window BA every frame from frame 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12    # float32 outside the tensor cores
 POPC_PER_CLOCK_PER_SM = 16
@@ -758,10 +786,10 @@ def rotation_angle(R: np.ndarray) -> float:
     return float(np.arctan2(np.linalg.norm(vee) / 2.0, (np.trace(R) - 1.0) / 2.0))
 
 
-def run_slice(cfg, dev, n: int, local_ba_every: int = 0, detector=None, frame_source=None):
+def run_slice(cfg, dev, n: int, local_ba_every: int = 0, detector=None, frame_source=None, ba_mesh=None):
     from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline
 
-    pipe = VOPipeline(cfg, device=dev, local_ba_every=local_ba_every, detector=detector)
+    pipe = VOPipeline(cfg, device=dev, local_ba_every=local_ba_every, detector=detector, ba_mesh=ba_mesh)
     t0 = time.perf_counter()
     pipe.run(frames(cfg, n) if frame_source is None else frame_source)
     if dev.type == "cuda":
@@ -770,7 +798,7 @@ def run_slice(cfg, dev, n: int, local_ba_every: int = 0, detector=None, frame_so
 
 
 def drive_path(label: str, cfg, dev, n_frames: int, local_ba_every: int, kernels: dict, expected: dict,
-               detector=None):
+               detector=None, ba_mesh=None):
     """Run one path on the card with every launch count set to 0 just
     before; check the counts, tracking and ground truth.  -> (pipe, wall
     seconds, poses, launches)."""
@@ -778,7 +806,7 @@ def drive_path(label: str, cfg, dev, n_frames: int, local_ba_every: int, kernels
 
     for k in kernels.values():
         k.launches = 0
-    pipe, wall = run_slice(cfg, dev, n_frames, local_ba_every, detector)
+    pipe, wall = run_slice(cfg, dev, n_frames, local_ba_every, detector, ba_mesh=ba_mesh)
     launches = {name: k.launches for name, k in kernels.items()}
     check(launches == expected, f"{label}: kernel launches {launches}, expected {expected}")
     poses = np.stack([o.T_wc.cpu().numpy() for o in pipe.outputs])
@@ -870,10 +898,14 @@ def device_events(fn) -> tuple[int, int]:
     """(kernels, copies and fills) on the device in one ``fn()``."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):  # now and then the profiler hands back an empty window: take another
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    check(bool(names), "the profiler saw no device event")
     copies = sum(n.startswith(("Memcpy", "Memset")) for n in names)
     return len(names) - copies, copies
 
@@ -1029,6 +1061,272 @@ def drive_online(cfg, dev, det, kernels: dict, expected: dict, slice_steady, car
     return launches
 
 
+def drive_steered(cfg, dev, kernels: dict, expected: dict, slice_steady, card: str) -> dict:
+    """The fifth path: the sparse path with steered BRIEF.  -> its launch counts."""
+    from stereo_semantic_vo_tpu_torch.engine.tracker import FrameInput, track_step
+    from stereo_semantic_vo_tpu_torch.ops.orb import extract_orb
+
+    n_s = N_STEER_FRAMES
+    pipe, wall, poses, launches = drive_path("steered", cfg, dev, n_s, 0, kernels, expected)
+    last = list(frames(cfg, n_s + 1))[-1]
+    frame = FrameInput(*(torch.from_numpy(a).to(dev) for a in last[1:5]))
+    kp = extract_orb(frame.left, cfg.orb)
+    angle = kp.angle[kp.valid]
+    check(float(angle.abs().max()) > 0.5, "steered path: the keypoints carry no angle")
+    say(f"steered: keypoint angles span [{float(angle.min()):.3f}, {float(angle.max()):.3f}] rad on frame {n_s}")
+    no_sync("one steered track_step", lambda: track_step(pipe.state, frame, cfg))
+    cpu_rerun("steered", cfg, N_STEER_CPU_FRAMES, poses)
+    steady = steady_state("steered", pipe, n_s, wall, card)
+    say("steered beside the sparse path in this call: median / p90 {:.3f} / {:.3f} against {:.3f} / {:.3f} "
+        "ms/frame".format(*steady, *slice_steady))
+    return launches
+
+
+def compare_volume_modes(cfg, dev) -> None:
+    """The whole-image modes on a frame's ORB keypoints against "strips" and
+    B2 ("pallas"), timed, with the kernels one "volume" call launches."""
+    from stereo_semantic_vo_tpu_torch.core.camera import Camera
+    from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
+    from stereo_semantic_vo_tpu_torch.kernels.sparse_stereo import keypoint_origins, keypoint_stereo_costs_plain
+    from stereo_semantic_vo_tpu_torch.ops.orb import extract_orb
+    from stereo_semantic_vo_tpu_torch.ops.stereo import BIG, sparse_disparity, volume_costs
+
+    H, W = cfg.camera.height, cfg.camera.width
+    sc = cfg.stereo
+    D, r = sc.max_disparity, sc.block_radius
+    left, right = (torch.from_numpy(a).to(dev) for a in two_plane_frame_source(H, W)(3))
+    kp = extract_orb(left, cfg.orb)
+    cam = Camera.from_config(cfg.camera, dev)
+    modes = ("strips", "pallas", "volume", "volume2")
+    calls = {m: (lambda m=m: sparse_disparity(left, right, kp.uv, kp.valid, cam,
+                                              dataclasses.replace(sc, sparse_mode=m))) for m in modes}
+    out = {m: calls[m]() for m in modes}
+    torch.cuda.synchronize()
+    for a, b in (("volume", "volume2"), ("strips", "pallas")):
+        check(all(torch.equal(x, y) for x, y in zip(out[a], out[b])), f"stereo modes {a} and {b} differ")
+    shift = keypoint_origins(kp.uv, H, W, D, r)[3]
+    inside = shift == 0
+    err = 0.0
+    for ref in ("strips", "pallas"):
+        v, s_ = out["volume"], out[ref]
+        check(torch.equal(v.valid[inside], s_.valid[inside]), f"volume and {ref}: valid masks differ")
+        err = max(err, float((v.disparity[inside] - s_.disparity[inside]).abs().max()))
+    check(err <= VOLUME_DISP_TOL_PX, f"volume vs strips / B2: disparities differ by {err} px")
+    # at the left edge the clamped strip reads disparity d at d - shift
+    vol = volume_costs(left, right, kp.uv, sc)
+    y0, xl0, xr0, _ = keypoint_origins(kp.uv, H, W, D, r)
+    strips = torch.flip(keypoint_stereo_costs_plain(left, right, y0, xl0, xr0, D, r, sc.color_weight, sc.grad_weight,
+                                                    sc.color_trunc, sc.grad_trunc), (1,))
+    edge = torch.nonzero(~inside).flatten().tolist()
+    cost_err = 0.0
+    for k in edge:
+        sh = int(shift[k])
+        a, b = strips[k, sh:], vol[k, : D - sh]
+        check(bool((vol[k, D - sh:] == BIG).all()), "volume: an unaddressable disparity has a cost")
+        cost_err = max(cost_err, float(((a - b).abs() / b.abs()).max()))
+    check(cost_err <= VOLUME_COST_RTOL, f"edge keypoints: strips at d vs volume at d - shift differ by rtol {cost_err}")
+    n_edge_differ = int((out["volume"].disparity[~inside] != out["strips"].disparity[~inside]).sum())
+    ms = {m: median_ms(calls[m], reps=10, warmup=2) for m in modes}
+    n_kernels, n_copies = device_events(calls["volume"])
+    n_kernels2, _ = device_events(calls["volume2"])
+    say(f"volume modes: {int(kp.valid.sum())} ORB keypoints at {W}x{H}; volume and volume2 equal; against strips "
+        f"and B2 where the strip is not clamped ({int(inside.sum())} keypoints): valid equal, disparities within "
+        f"{err:.3g} px (bound {VOLUME_DISP_TOL_PX}); at the left edge ({len(edge)} keypoints, x < D - 1 + r) strips' "
+        f"cost at d is volume's at d - shift within rtol {cost_err:.3g}, and {n_edge_differ} of their disparities "
+        f"differ (ROADMAP C)")
+    say("volume modes card ms (CUDA events, median of 10): " + ", ".join(f"{m} {t:.3f}" for m, t in ms.items())
+        + f"; one volume call launches {n_kernels} kernels and {n_copies} copies or fills, volume2 {n_kernels2}")
+
+
+def device_busy(fn) -> tuple[float, float, int]:
+    """Profile ``fn()``: -> (device busy ms, the union of its kernels',
+    copies' and fills' intervals over every stream; host wall ms under the
+    profiler, synchronized; kernels)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, wall, sum(e.get("cat") == "kernel" for e in events)
+
+
+def drive_dp(cfg, dev, kernels: dict, card: str) -> dict:
+    """The data-parallel tracker at each B of ``DP_BATCHES``: stream b sees
+    the scene's frame t + DP_OFFSET * b and restarts (a fresh state) at
+    step b.  -> the launch counts of its timed runs."""
+    from stereo_semantic_vo_tpu_torch.engine.state import init_state
+    from stereo_semantic_vo_tpu_torch.engine.tracker import FrameInput, init_step, track_step
+    from stereo_semantic_vo_tpu_torch.io.synthetic import camera_x, two_plane_frame_source
+    from stereo_semantic_vo_tpu_torch.parallel.dp_tracker import batched_init_state, make_dp_tracker
+
+    H, W, nb, N = cfg.camera.height, cfg.camera.width, cfg.semantic.max_boxes, N_DP_STEPS
+    src = two_plane_frame_source(H, W)
+    total = {name: 0 for name in kernels}
+    for B in DP_BATCHES:
+        offsets = [DP_OFFSET * b for b in range(B)]
+        batch = []
+        for s in range(N):
+            imgs = [src(s + o) for o in offsets]
+            batch.append(FrameInput(*(torch.from_numpy(np.stack([im[j] for im in imgs])).to(dev) for j in (0, 1)),
+                                    torch.zeros((B, nb, 4), device=dev), torch.zeros((B, nb), dtype=torch.bool,
+                                                                                       device=dev)))
+        step = make_dp_tracker([dev], cfg)
+        states = batched_init_state(cfg, B, [dev])
+        outs = []
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        for s in range(N):
+            if s == DP_TIMED_FROM:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if 0 < s < B:  # stream s restarts here
+                states[s] = init_state(cfg, dev)
+            states, out = step(states, batch[s])
+            outs.append(out)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        tracks = B * N - (2 * B - 1)  # stream 0 inits once, every other stream twice
+        expected = {name: 0 for name in kernels}
+        expected.update(extract_patches=B * N, keypoint_stereo_costs=B * N, fused_best_match=2 * tracks)
+        check(launches == expected, f"dp B={B}: kernel launches {launches}, expected {expected}")
+        for name, v in launches.items():
+            total[name] += v
+        # ground truth, each stream from its last start; then its own
+        # single-stream run from there, bit for bit
+        poses = torch.stack([o.T_wc for o in outs]).cpu().numpy()  # (N, B, 4, 4)
+        pos_err = rot_err = 0.0
+        for b in range(B):
+            x0 = camera_x(b + offsets[b], cfg.camera.bf, cfg.camera.fx)
+            for s in range(b, N):
+                gt = camera_x(s + offsets[b], cfg.camera.bf, cfg.camera.fx) - x0
+                pos_err = max(pos_err, float(np.linalg.norm(poses[s, b, :3, 3] - [gt, 0.0, 0.0])))
+                rot_err = max(rot_err, rotation_angle(poses[s, b, :3, :3]))
+                check(s == b or bool(outs[s].pnp_ok[b]), f"dp B={B}: stream {b} lost at step {s}")
+            st = init_state(cfg, dev)
+            for s in range(b, N):
+                st, o = (init_step if s == b else track_step)(st, FrameInput(*(x[b] for x in batch[s])), cfg)
+                for name, x in zip(o._fields, o):
+                    check(torch.equal(getattr(outs[s], name)[b], x),
+                          f"dp B={B}: stream {b} step {s} {name} differs from its single-stream run")
+        check(pos_err <= POS_BOUND_M and rot_err <= ROT_BOUND_RAD,
+              f"dp B={B}: error {pos_err:.4f} m / {rot_err:.5f} rad against ground truth")
+        no_sync(f"one dp step at B={B}", lambda: step(states, batch[-1]))
+        busy, wall_p, n_k = device_busy(lambda: [step(states, batch[s]) for s in range(N - 3, N)])
+        timed = N - DP_TIMED_FROM
+        say(f"dp B={B}: {N} steps, streams restarting at steps {list(range(B))}, every stream bit for bit its "
+            f"single-stream run, max error {pos_err:.5f} m / {rot_err:.6f} rad; launches {launches}")
+        say(f"dp B={B}: {B * timed / wall:.3f} frames/s in all, {wall / timed * 1e3:.3f} ms a step (a frame of "
+            f"each stream), over steps {DP_TIMED_FROM}-{N - 1}; under the profiler (3 steps) device busy "
+            f"{busy / 3:.3f} ms a step of {wall_p / 3:.3f} ms, idle {100 * (1 - busy / wall_p):.1f}%, "
+            f"{n_k / 3:.0f} kernels a step; card {card}")
+    return total
+
+
+def drive_sharded(cfg, dev, kernels: dict, expected: dict, card: str) -> dict:
+    """The landmark-sharded window BA over NCCL at world size 1, in this
+    process.  -> the launch counts of the pipeline with a mesh."""
+    import socket
+
+    import torch.distributed as dist
+
+    from stereo_semantic_vo_tpu_torch.core.camera import Camera
+    from stereo_semantic_vo_tpu_torch.ops.local_ba import local_ba
+    from stereo_semantic_vo_tpu_torch.parallel.mesh import make_mesh
+    from stereo_semantic_vo_tpu_torch.parallel.sharded_ba import make_sharded_local_ba
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device=dev.type)
+        check(mesh.device == dev and mesh.size == 1, f"mesh {mesh}")
+        cam = Camera.from_config(cfg.camera, dev)
+        poses, X, obs, mask, ur, rm = local_ba_problem(cfg.camera, dev, cfg.window.window_frames,
+                                                       cfg.window.max_map_points)
+        X0, pv = X + 0.1, torch.ones(X.shape[0], dtype=torch.bool, device=dev)
+        run = make_sharded_local_ba(mesh, cam, cfg.ba, stereo_edges=True)
+        got = run(poses, X0, obs, mask, pv, ur, rm)
+        want = local_ba(poses, X0, obs, mask, pv, cam, cfg.ba, obs_ur=ur, obs_r_mask=rm)
+        dcost = abs(float(got.cost) - float(want.cost)) / abs(float(want.cost))
+        dpose = float((got.poses - want.poses).abs().max())
+        dpt = float(torch.median(torch.linalg.vector_norm(got.points - want.points, dim=1)))
+        check(dcost <= SHARDED_COST_RTOL and dpose <= SHARDED_POSE_ATOL and dpt < SHARDED_POINT_MEDIAN_M,
+              f"sharded BA vs local_ba: cost rtol {dcost}, poses {dpose}, median point {dpt} m")
+        no_sync("one sharded solve over NCCL", lambda: run(poses, X0, obs, mask, pv, ur, rm))
+        ms = median_ms(lambda: run(poses, X0, obs, mask, pv, ur, rm), reps=10, warmup=2)
+        ms_local = median_ms(lambda: local_ba(poses, X0, obs, mask, pv, cam, cfg.ba, obs_ur=ur, obs_r_mask=rm),
+                             reps=10, warmup=2)
+        say(f"sharded BA over {backend}, world size 1: F=4, L=2048, stereo edges against local_ba (B7 build): cost "
+            f"rtol {dcost:.3g}, poses max abs {dpose:.3g}, median point {dpt:.3g} m (bounds {SHARDED_COST_RTOL}, "
+            f"{SHARDED_POSE_ATOL}, {SHARDED_POINT_MEDIAN_M}); {ms:.3f} ms a solve against {ms_local:.3f} ms")
+        # the pipeline with the mesh, against the same pipeline without one
+        n_f = N_SHARDED_FRAMES
+        pipe, _, poses_m, launches = drive_path("sharded window BA", cfg, dev, n_f, 1, kernels, expected,
+                                                ba_mesh=mesh)
+        check(pipe.window_ba is not None, "the pipeline did not take the mesh")
+        ref, _ = run_slice(cfg, dev, n_f, local_ba_every=1)
+        poses_r = np.stack([o.T_wc.cpu().numpy() for o in ref.outputs])
+        dpos = float(np.abs(poses_m[:, :3, 3] - poses_r[:, :3, 3]).max())
+        drot = max(rotation_angle(a[:3, :3].T @ b[:3, :3]) for a, b in zip(poses_m, poses_r))
+        check(dpos <= CPU_POS_TOL_M and drot <= CPU_ROT_TOL_RAD,
+              f"pipeline with a mesh vs without: poses differ by {dpos} m / {drot} rad")
+        no_sync("one sharded refine", lambda: pipe.window_ba.refine(pipe.state))
+        say(f"VOPipeline(ba_mesh=..., local_ba_every=1) vs no mesh: {n_f} frames, {n_f - 3} refines, max pose "
+            f"difference {dpos:.3g} m, {drot:.3g} rad; card {card}")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def compare_replicated_detector(cfg, dev, det) -> None:
+    """Two frames through the replicated detector on the card's data axis
+    against ``det.detect`` of each."""
+    from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
+    from stereo_semantic_vo_tpu_torch.models import zoo
+    from stereo_semantic_vo_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+    from stereo_semantic_vo_tpu_torch.parallel.semantic_head import make_replicated_detector
+
+    H, W = cfg.camera.height, cfg.camera.width
+    src = two_plane_frame_source(H, W)
+    gray = [torch.from_numpy(src(i)[0] / 255.0).to(dev) for i in (0, 5)]
+    imgs = torch.stack([torch.stack([g, g, g], -1) for g in gray])
+    mesh = make_mesh(1, axis=DATA_AXIS, device=dev.type)
+    detect = make_replicated_detector(mesh, zoo.KITTI_TINY_V2_CFG, img_hw=(H, W))
+    out = detect(imgs)
+    box_err = 0.0
+    for b, img in enumerate(imgs):
+        want = det.detect(img)
+        check(torch.equal(out.valid[b], want.valid), f"replicated detector: valid differs on frame {b}")
+        v = want.valid
+        box_err = max(box_err, float((out.boxes[b][v] - want.boxes[v]).abs().max()))
+        check(torch.allclose(out.scores[b], want.scores, rtol=DET_RTOL, atol=0.0),
+              f"replicated detector: scores differ on frame {b}")
+    check(box_err <= DET_BOX_TOL_PX, f"replicated detector: boxes differ by {box_err} px")
+    no_sync("one replicated detect of 2 frames", lambda: detect(imgs))
+    ms = median_ms(lambda: detect(imgs), reps=10)
+    say(f"replicated detector: 2 frames on {[str(d) for d in mesh.devices]} against detect of each: valid "
+        f"equal ({[int(x) for x in out.valid.sum(1)]} boxes), boxes within {box_err:.3g} px, scores within rtol "
+        f"{DET_RTOL}; {ms:.3f} ms a batch")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the port on a GPU")
@@ -1135,6 +1433,29 @@ def main() -> None:
     expected = {"extract_patches": n_o, "keypoint_stereo_costs": n_o,
                 "fused_best_match": 2 * (n_o - 1), "sgm_aggregate": 0, "local_ba_blocks": 0, **off}
     by_path["online"] = drive_online(cfg, dev, det, kernels, expected, slice_steady, card)
+
+    # 10. the fifth path: steered BRIEF, the sparse path's launch counts
+    steer_cfg = dataclasses.replace(cfg, orb=dataclasses.replace(cfg.orb, steer=True))
+    n_s = N_STEER_FRAMES
+    expected = {"extract_patches": n_s, "keypoint_stereo_costs": n_s,
+                "fused_best_match": 2 * (n_s - 1), "sgm_aggregate": 0, "local_ba_blocks": 0, **off}
+    by_path["steered"] = drive_steered(steer_cfg, dev, kernels, expected, slice_steady, card)
+
+    # 11. the whole-image stereo modes against strips and B2
+    compare_volume_modes(cfg, dev)
+
+    # 12. the data-parallel tracker at B = 1, 2, 4
+    by_path["dp_tracker"] = drive_dp(cfg, dev, kernels, card)
+
+    # 13. the landmark-sharded window BA over NCCL; its pipeline builds the
+    # normal equations with the einsum build, as the reference's sharded body
+    n_m = N_SHARDED_FRAMES
+    expected = {"extract_patches": n_m, "keypoint_stereo_costs": n_m,
+                "fused_best_match": 2 * (n_m - 1), "sgm_aggregate": 0, "local_ba_blocks": 0, **off}
+    by_path["sharded_window_ba"] = drive_sharded(cfg, dev, kernels, expected, card)
+
+    # 14. the replicated detector
+    compare_replicated_detector(cfg, dev, det)
 
     for e in entries:
         e["launches"] = sum(counts[e["name"]] for counts in by_path.values())

@@ -72,7 +72,7 @@ class ORBConfig:
     descriptor_bits: int = 256
     brief_seed: int = 0x0B5E55ED
     smooth_width: int = 9
-    steer: bool = True                # False = upright BRIEF (the only form ported)
+    steer: bool = True                # rotate the pattern by the IC angle; False = upright BRIEF
     fast_backend: str = "xla"         # "xla" (rolled ring) | "pallas" (CUDA kernel); "auto" = "xla"
     patch_backend: str = "xla"        # "xla" (plain gather) | "pallas" (CUDA kernel)
 

@@ -2,14 +2,15 @@
 the online YOLO detector), run the tracking step, write trajectories, report
 per-frame times.
 
-Port of ``stereo_semantic_vo_tpu.engine.pipeline.VOPipeline`` without the
-mesh-sharded window BA (ROADMAP A5): ``ba_mesh`` raises
-``NotImplementedError``.  With ``local_ba_every=N`` the window BA
-(engine/window_ba.py) refines the state every N-th frame once the window is
-full.  Frame decode runs on a prefetch thread; frames are copied to the
-device from pinned memory without blocking; frame t-1's outputs are read
-back after frame t is dispatched, so the host never waits on the step it
-just queued.
+Port of ``stereo_semantic_vo_tpu.engine.pipeline.VOPipeline``.  With
+``local_ba_every=N`` the window BA (engine/window_ba.py) refines the state
+every N-th frame once the window is full; with a ``ba_mesh``
+(parallel/mesh.py) it is the landmark-sharded ``WindowBA``: every rank runs
+a pipeline on its own device over the same frames, and the refine's solve
+is split over the ranks.  Frame decode runs on a prefetch thread; frames
+are copied to the device from pinned memory without blocking; frame t-1's
+outputs are read back after frame t is dispatched, so the host never
+waits on the step it just queued.
 
 With a ``detector`` (models/yolo.YoloDetector on the pipeline's device) and
 ``async_detect=True``, frame t tracks with frame t-1's detections and frame
@@ -37,7 +38,7 @@ from stereo_semantic_vo_tpu_torch.core import lie
 from stereo_semantic_vo_tpu_torch.core.config import VOConfig
 from stereo_semantic_vo_tpu_torch.engine.state import init_state
 from stereo_semantic_vo_tpu_torch.engine.tracker import FrameInput, init_step, track_step
-from stereo_semantic_vo_tpu_torch.engine.window_ba import refine_state
+from stereo_semantic_vo_tpu_torch.engine.window_ba import WindowBA, refine_state
 from stereo_semantic_vo_tpu_torch.engine.trajectory import TrajectoryWriter
 
 
@@ -74,12 +75,15 @@ class VOPipeline:
         reinit_after_lost: int = 3,
         async_detect: bool = True,
     ):
-        if ba_mesh is not None:
-            raise NotImplementedError("the sharded window BA is not ported yet (ROADMAP A5)")
         self.cfg = cfg
         self.local_ba_every = local_ba_every
         self.device = torch.device(device)
         self.state = init_state(cfg, self.device)
+        self.window_ba = None
+        if local_ba_every > 0 and ba_mesh is not None:
+            if ba_mesh.device != self.state.T_cw.device:
+                raise ValueError(f"the mesh's rank runs on {ba_mesh.device}, the pipeline on {self.state.T_cw.device}")
+            self.window_ba = WindowBA(cfg, mesh=ba_mesh)
         self.detector = detector
         if detector is not None and detector.device != self.state.T_cw.device:
             raise ValueError(f"the detector runs on {detector.device}, the pipeline on {self.state.T_cw.device}")
@@ -206,7 +210,10 @@ class VOPipeline:
             and fidx % self.local_ba_every == 0
             and self._n_processed >= self.cfg.window.window_frames
         ):
-            self.state = refine_state(self.state, self.cfg)
+            if self.window_ba is not None:
+                self.state, _ = self.window_ba.refine(self.state)
+            else:
+                self.state = refine_state(self.state, self.cfg)
             # the closed-form rigid inverse; the reference's jnp.linalg.inv
             # agrees to float32 rounding (~1e-7)
             out = out._replace(T_cw=self.state.T_cw, T_wc=lie.T_inv(self.state.T_cw))

@@ -14,9 +14,10 @@ so the window order is a roll and "is the window full" is a Python test.
 The reference's ``lax.cond`` on "at least 8 landmarks" is a device
 predicate; here the solve always runs and its result is kept or dropped by
 ``torch.where``, as the reference's sharded variant does, so refinement
-never reads back to the host.  The reference's ``WindowBA``, the host
-wrapper of the mesh-sharded solve, is not ported (ROADMAP A5):
-``VOPipeline(ba_mesh=...)`` raises.
+never reads back to the host.  ``WindowBA(cfg, mesh=...)`` runs the same
+trim and gate, then the landmark-sharded solve of
+``parallel/sharded_ba.py`` over the mesh's ranks (the engine of
+``VOPipeline(ba_mesh=...)``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ from stereo_semantic_vo_tpu_torch.core.config import VOConfig
 from stereo_semantic_vo_tpu_torch.core.precision import f32_geometry
 from stereo_semantic_vo_tpu_torch.engine.state import VOState
 from stereo_semantic_vo_tpu_torch.ops import local_ba as local_ba_ops
+from stereo_semantic_vo_tpu_torch.parallel.mesh import Mesh, shard_landmarks
+from stereo_semantic_vo_tpu_torch.parallel.sharded_ba import make_sharded_local_ba
 
 
 class ObsTensors(NamedTuple):
@@ -170,3 +173,65 @@ def refine_state(state: VOState, cfg: VOConfig) -> VOState:
         win_T_cw=torch.where(can, torch.roll(res.poses, first, dims=0), state.win_T_cw),
     )
 
+
+class WindowBA:
+    """The window BA for a pipeline, sharded over a mesh's ranks.
+
+    Without a mesh ``refine`` is :func:`refine_state`.  With one, every rank
+    holds the whole (replicated) state and tracks the same frames; a refine
+    runs :func:`refine_state`'s observation build, trim and gate, then the
+    landmark-sharded solve on this rank's M/world landmarks, all-gathers
+    the refined points (one (M, 3) collective) for the uid write-back, and
+    leaves the state replicated on every rank.  As in the reference's
+    sharded refine, an under-constrained window masks every landmark out
+    (the solve then returns zero updates) and the outputs are kept only
+    where ``can`` holds, so nothing reads back to the host."""
+
+    def __init__(self, cfg: VOConfig, mesh: Mesh | None = None):
+        self.cfg = cfg
+        self.mesh = mesh
+        self._sharded = None
+        if mesh is not None:
+            self.cam = Camera.from_config(cfg.camera, mesh.device)
+            self._sharded = make_sharded_local_ba(mesh, self.cam, cfg.ba, stereo_edges=True)
+
+    def ready(self, state: VOState) -> bool:
+        return state.frame_idx + 1 >= self.cfg.window.window_frames
+
+    def refine(self, state: VOState) -> tuple[VOState, dict]:
+        """-> (refined state, stats of device scalars: n_obs, n_points, cost;
+        empty without a mesh or before the window is full)."""
+        if self._sharded is None:
+            return refine_state(state, self.cfg), {}
+        if not self.ready(state):
+            return state, {}
+        return self._sharded_refine(state)
+
+    @f32_geometry
+    def _sharded_refine(self, state: VOState) -> tuple[VOState, dict]:
+        cfg, mesh = self.cfg, self.mesh
+        W, K = cfg.window.window_frames, cfg.orb.max_keypoints
+        first, poses, win_uid, win_uv, win_valid, win_disp = _window_view(state, W, K)
+        obs = build_observations(
+            state.map_uid, state.map_valid, state.map_bad, state.frame_idx,
+            win_uid, win_uv, win_valid, W, K, win_disp,
+        )
+        obs_mask, point_valid, can = _trim_and_gate(state, obs, poses, self.cam, cfg)
+        pv = point_valid & can
+        om = obs_mask & pv[None, :]
+
+        def shard(a, dim=0):
+            return shard_landmarks(mesh, a, dim=dim)
+
+        res = self._sharded(
+            poses, shard(state.map_Xw), shard(obs.obs_uv, 1), shard(om, 1), shard(pv),
+            shard(obs.obs_ur, 1), shard(obs.obs_r_mask & om, 1),
+        )
+        points = mesh.all_gather(res.points)
+        new_Xw = _write_back(state.map_Xw, points, pv, obs.primary_idx, obs.has_primary)
+        new_state = state._replace(
+            map_Xw=torch.where(can, new_Xw, state.map_Xw),
+            T_cw=torch.where(can, res.poses[-1], state.T_cw),
+            win_T_cw=torch.where(can, torch.roll(res.poses, first, dims=0), state.win_T_cw),
+        )
+        return new_state, {"n_obs": torch.sum(om), "n_points": torch.sum(pv), "cost": res.cost}

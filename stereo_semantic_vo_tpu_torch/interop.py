@@ -2,8 +2,10 @@
 
 The main path has no learned weights: its parameters are the config, the
 BRIEF pattern (a seeded numpy draw both packages make identically) and the
-tracker state.  These functions take plain dataclasses and numpy arrays, so
-this module imports no JAX.
+tracker state; the detector's are its folded darknet params.  A batch of
+JAX states (the data-parallel tracker's, stacked on a leading axis) maps
+onto the port's list of per-stream states.  These functions take plain
+dataclasses and numpy arrays, so this module imports no JAX.
 """
 
 from __future__ import annotations
@@ -67,3 +69,26 @@ def state_to_numpy(state: VOState) -> dict[str, np.ndarray]:
         a = v.detach().cpu().numpy()
         out[name] = a.view(np.uint32) if name in ("last_desc", "map_desc") else a
     return out
+
+
+def states_from_numpy(arrays: Mapping[str, Any], devices=("cuda",)) -> list[VOState]:
+    """A batched JAX VOState's fields as numpy arrays, stacked on a leading
+    stream axis -> the per-stream VOStates of ``parallel/dp_tracker``,
+    stream b on ``devices[b % len(devices)]``."""
+    batch = np.asarray(arrays["frame_idx"]).shape[0]
+    return [state_from_numpy({k: np.asarray(v)[b] for k, v in arrays.items()}, devices[b % len(devices)])
+            for b in range(batch)]
+
+
+def states_to_numpy(states: list[VOState]) -> dict[str, np.ndarray]:
+    """Per-stream VOStates -> numpy arrays stacked on a leading stream axis,
+    in the batched JAX VOState's dtypes."""
+    per = [state_to_numpy(s) for s in states]
+    return {k: np.stack([p[k] for p in per]) for k in per[0]}
+
+
+def params_to_numpy(params: Mapping[Any, Mapping[str, Any]]) -> dict[int, dict[str, np.ndarray]]:
+    """A detector's folded params ({layer: {"w": HWIO, "b"}}, e.g. the JAX
+    detector's ``params``) as float32 numpy arrays, for
+    ``models/yolo.YoloDetector.from_params``."""
+    return {int(k): {n: np.asarray(v, np.float32) for n, v in p.items()} for k, p in params.items()}

@@ -19,6 +19,7 @@ import torch
 from stereo_semantic_vo_tpu_torch.kernels import build
 
 MAX_DISPARITY = 256   # the kernel's strip offsets: 8 a lane of a warp
+BIG = 1e9             # the cost of a disparity the image cannot address
 _WARPS = 4            # keypoints a block (csrc/sparse_stereo.cu kWarps)
 _SMEM_LIMIT = 48 * 1024
 
@@ -110,18 +111,27 @@ def disparity_from_costs(
     """The caller's epilogue of the TPU kernel: (K, D) strip-order costs and
     the (K,) strip shifts -> (disparity, depth, valid, cost, best), the
     first four StereoMatch's fields and ``best`` the argmin disparity."""
-    P = 2 * r + 1
-    big = 1e9
     d_idx = torch.arange(D, device=acc.device)[None, :]
     costs = torch.flip(acc, dims=(1,))  # strip offset s = D-1-d -> disparity order
     addressable = (D - 1 - d_idx) >= shift[:, None]
-    costs = torch.where(addressable, costs, big)
+    return disparity_epilogue(torch.where(addressable, costs, BIG), kp_valid, bf, D, r, wc, wg, tc, tg,
+                              uniqueness_ratio, min_disparity)
 
+
+def disparity_epilogue(
+    costs, kp_valid, bf, D: int, r: int, wc: float, wg: float, tc: float, tg: float,
+    uniqueness_ratio: float, min_disparity: float,
+):
+    """The disparity-order core of the epilogue, shared by every
+    per-keypoint mode: (K, D) costs, ``BIG`` where not addressable ->
+    (disparity, depth, valid, cost, best)."""
+    P = 2 * r + 1
+    d_idx = torch.arange(D, device=costs.device)[None, :]
     best = torch.argmin(costs, dim=1)
     c0 = torch.gather(costs, 1, best[:, None])[:, 0]
     # uniqueness: best must beat the runner-up (excluding +-1 neighbours)
     neighbor = torch.abs(d_idx - best[:, None]) <= 1
-    c1 = torch.amin(torch.where(neighbor, big, costs), dim=1)
+    c1 = torch.amin(torch.where(neighbor, BIG, costs), dim=1)
     unique = c0 < uniqueness_ratio * c1
 
     # equiangular (two-line) sub-pixel interpolation

@@ -92,10 +92,13 @@ def _damp(H: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
 
 @f32_geometry
 def schur_solve(
-    eq: NormalEq, lam: torch.Tensor, point_valid: torch.Tensor, fix_first_pose: bool = True
+    eq: NormalEq, lam: torch.Tensor, point_valid: torch.Tensor, fix_first_pose: bool = True, reduce=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Reduced-camera-system solve.  Returns (dx_c (F, 6), dx_p (L, 3)); a
-    singular system gives NaN steps, which the LM loop rejects."""
+    singular system gives NaN steps, which the LM loop rejects.  With the
+    landmarks split over ranks, ``reduce`` sums the landmark-partial terms
+    (S, rhs, Hcc, gc) over them (parallel/sharded_ba.py); the landmarks are
+    eliminated and back-substituted locally."""
     F = eq.Hcc.shape[0]
     pv = point_valid.to(torch.float32)
     eye3 = torch.eye(3, dtype=eq.Hpp.dtype, device=eq.Hpp.device)
@@ -107,9 +110,13 @@ def schur_solve(
     # S = Hcc + damping - sum_l Hcp Hpp^-1 Hcp'
     Wt = torch.einsum("flab,lbc->flac", eq.Hcp, Hpp_inv)       # (F, L, 6, 3)
     S_blocks = torch.einsum("flac,glbc->fgab", Wt, eq.Hcp)     # (F, F, 6, 6)
+    rhs_blocks = torch.einsum("flac,lc->fa", Wt, eq.gp)        # (F, 6)
+    Hcc, gc = eq.Hcc, eq.gc
+    if reduce is not None:
+        S_blocks, rhs_blocks, Hcc, gc = reduce([S_blocks, rhs_blocks, Hcc, gc])
     on_diag = torch.eye(F, dtype=torch.bool, device=eq.Hcc.device)[:, :, None, None]
-    S = torch.where(on_diag, _damp(eq.Hcc, lam)[:, None] - S_blocks, -S_blocks)
-    rhs = eq.gc - torch.einsum("flac,lc->fa", Wt, eq.gp)       # (F, 6)
+    S = torch.where(on_diag, _damp(Hcc, lam)[:, None] - S_blocks, -S_blocks)
+    rhs = gc - rhs_blocks
 
     S_flat = S.transpose(1, 2).reshape(F * 6, F * 6)
     if fix_first_pose:
@@ -137,15 +144,20 @@ def local_ba(
     fix_first_pose: bool = True,
     obs_ur: torch.Tensor | None = None,
     obs_r_mask: torch.Tensor | None = None,
+    reduce=None,
 ) -> LocalBAResult:
     """``cfg.local_iterations`` LM steps over Schur-complement solves.
     poses (F,4,4), points (L,3), obs_uv (F,L,2), obs_mask (F,L),
-    point_valid (L,); ``obs_ur`` / ``obs_r_mask`` (F,L) add stereo edges."""
+    point_valid (L,); ``obs_ur`` / ``obs_r_mask`` (F,L) add stereo edges.
+    ``reduce`` (list of tensors -> their sums over ranks) makes this one
+    rank's share of a landmark-sharded solve: the cost and the reduced
+    system are summed over the ranks (see ``schur_solve``)."""
     obs_mask = obs_mask & point_valid[None, :]
     backend = resolve_backend(cfg.local_hessian_backend, poses.device, "pallas", "xla")
 
     def total_cost(po, pt):
-        return robust_cost(po, pt, obs_uv, obs_mask, cam, cfg.huber_delta, obs_ur, obs_r_mask)
+        c = robust_cost(po, pt, obs_uv, obs_mask, cam, cfg.huber_delta, obs_ur, obs_r_mask)
+        return c if reduce is None else reduce([c])[0]
 
     build = prepare_normal_equations(obs_uv, obs_mask, cam, cfg.huber_delta, backend, obs_ur, obs_r_mask)
     po, pt = poses, points
@@ -153,7 +165,7 @@ def local_ba(
     cost = total_cost(po, pt)
     for _ in range(cfg.local_iterations):
         eq = build(po, pt)
-        dx_c, dx_p = schur_solve(eq, lam, point_valid, fix_first_pose)
+        dx_c, dx_p = schur_solve(eq, lam, point_valid, fix_first_pose, reduce)
         po_new = lie.se3_exp(dx_c) @ po
         pt_new = pt + dx_p
         new_cost = total_cost(po_new, pt_new)

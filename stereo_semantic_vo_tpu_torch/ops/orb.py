@@ -1,9 +1,10 @@
 """ORB feature frontend: FAST-9/16 on a fixed pyramid, grid top-k selection
-and upright BRIEF descriptors, all with static shapes.
+and BRIEF descriptors, upright or steered, all with static shapes.
 
-Port of the upright path of ``stereo_semantic_vo_tpu.ops.orb`` (what
-``VOConfig.kitti()`` runs, ``steer=False``).  Three points keep it equal to
-the reference:
+Port of ``stereo_semantic_vo_tpu.ops.orb``: upright BRIEF (what
+``VOConfig.kitti()`` runs, ``steer=False``) and steered BRIEF (the default
+``ORBConfig``, ``steer=True``: the pattern rotated by each keypoint's
+intensity-centroid angle).  Three points keep it equal to the reference:
 
 * top-k selection uses a stable descending sort, so ties go to the lower
   index as in ``lax.top_k`` (grid cells are full of zero-score ties);
@@ -17,6 +18,14 @@ the reference:
   does not reproduce it.
 
 Descriptors are (K, 8) int32 bit patterns of the reference's uint32 words.
+
+Both forms take the smoothed level's patches around every keypoint from one
+patch call a frame (``kernels/patch_extract``, B1 on a card).  Upright BRIEF
+compares two fixed pixels of each patch.  Steered BRIEF takes the angle from
+the patch's circular moments (full float32 accumulation), then rotates the
+pattern: its samples reach up to 15 * sqrt(2) px from the keypoint, beyond
+the patch and the border, so ``describe`` gathers them from the whole
+smoothed level image, clamped, as the reference does.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from stereo_semantic_vo_tpu_torch.core.config import ORBConfig, resolve_backend
+from stereo_semantic_vo_tpu_torch.core.precision import f32_matmul
 from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_score_rolled as _fast_score
 from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_scores_levels, mask_border, seq_sum
 from stereo_semantic_vo_tpu_torch.kernels.fast_score import nms3 as _nms3
@@ -43,7 +53,7 @@ class Keypoints(NamedTuple):
 
     uv: torch.Tensor        # (K, 2) float32, level-0 pixel coordinates (x, y)
     response: torch.Tensor  # (K,) float32 FAST score
-    angle: torch.Tensor     # (K,) float32 radians (0: upright)
+    angle: torch.Tensor     # (K,) float32 radians (0 when upright)
     level: torch.Tensor     # (K,) int32 pyramid level
     valid: torch.Tensor     # (K,) bool
     desc: torch.Tensor      # (K, 8) int32 packed 256-bit descriptors
@@ -165,6 +175,59 @@ def _describe_upright(patches: torch.Tensor, seed: int, n_bits: int, patch: int)
     return _pack_bits(flat[:, i1] < flat[:, i2])
 
 
+@functools.lru_cache(maxsize=None)
+def _ic_weights(half: int, device: torch.device) -> torch.Tensor:
+    """(P*P, 2) intensity-centroid weights (dx, dy) inside the radius-``half``
+    circle of a P x P patch, P = 2*half + 1; zero outside it."""
+    r = half
+    dy, dx = np.mgrid[-r : r + 1, -r : r + 1]
+    circle = (dx * dx + dy * dy) <= r * r
+    w = np.stack([dx * circle, dy * circle], axis=-1).reshape(-1, 2).astype(np.float32)
+    return torch.from_numpy(w).to(device)
+
+
+def ic_moments(patches: torch.Tensor, half: int) -> torch.Tensor:
+    """(N, P, P) patches -> (N, 2) circular moments (m10, m01), accumulated
+    in full float32 (TF32 off): a rounded moment jitters the angle and flips
+    outer-radius BRIEF bits."""
+    with f32_matmul():
+        return patches.reshape(patches.shape[0], -1) @ _ic_weights(half, patches.device)
+
+
+def orientation_from_patches(patches: torch.Tensor, half: int) -> torch.Tensor:
+    """Intensity-centroid angle atan2(m01, m10) of (N, P, P) patches."""
+    m = ic_moments(patches, half)
+    return torch.atan2(m[:, 1], m[:, 0])
+
+
+@functools.lru_cache(maxsize=None)
+def _pattern(seed: int, n_bits: int, patch: int, device: torch.device) -> torch.Tensor:
+    """The BRIEF pattern as a (n_bits, 4) float32 device tensor."""
+    return torch.from_numpy(brief_pattern(seed, n_bits, patch).astype(np.float32)).to(device)
+
+
+def describe(img_s: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor, pattern: torch.Tensor) -> torch.Tensor:
+    """Steered BRIEF: rotate the (n_bits, 4) (y1, x1, y2, x2) pattern by each
+    keypoint's angle, round the samples half to even, clamp them into the
+    smoothed (H, W) image and compare -> (N, 8) int32 packed words.
+    ``xy`` (N, 2) integer keypoints (x, y), ``angle`` (N,) radians."""
+    H, W = img_s.shape
+    ca, sa = torch.cos(angle)[:, None], torch.sin(angle)[:, None]
+    p = pattern.to(torch.float32)
+    ky = xy[:, 1:2].to(torch.float32)
+    kx = xy[:, 0:1].to(torch.float32)
+    flat = img_s.reshape(-1)
+
+    def sample(py, px):
+        rx = ca * px[None, :] - sa * py[None, :]
+        ry = sa * px[None, :] + ca * py[None, :]
+        sy = torch.clamp(torch.round(ky + ry), 0, H - 1).to(torch.int64)
+        sx = torch.clamp(torch.round(kx + rx), 0, W - 1).to(torch.int64)
+        return flat[sy * W + sx]
+
+    return _pack_bits(sample(p[:, 0], p[:, 1]) < sample(p[:, 2], p[:, 3]))
+
+
 def _level_budgets(cfg: ORBConfig, n_candidates: int) -> list[int]:
     """Geometric per-level candidate budget ~ 1/scale^l, ORB-SLAM2 style."""
     inv = [1.0 / (cfg.scale_factor**l) for l in range(cfg.n_levels)]
@@ -189,8 +252,6 @@ def extract_orb(image: torch.Tensor, cfg: ORBConfig) -> Keypoints:
 
     Returns a fixed-capacity :class:`Keypoints` (K = cfg.max_keypoints),
     ranked by response, with validity masks for unfilled slots."""
-    if cfg.steer:
-        raise NotImplementedError("steered BRIEF (ORBConfig.steer=True) is not ported yet (ROADMAP A3)")
     dev = image.device
     # "auto" keeps the rolled ring everywhere, as the reference's does
     fused = resolve_backend(cfg.fast_backend, dev, "xla", "xla") == "pallas"
@@ -204,10 +265,11 @@ def extract_orb(image: torch.Tensor, cfg: ORBConfig) -> Keypoints:
         else (float(cfg.fast_threshold),)
     )
     b = cfg.border
-    r = cfg.patch_size // 2
+    # steered: the angle's patches (radius half_patch); upright: BRIEF's
+    r = cfg.half_patch if cfg.steer else cfg.patch_size // 2
 
     all_uv, all_rank, all_score, all_level, all_valid = [], [], [], [], []
-    smoothed, all_y0, all_x0, counts = [], [], [], []
+    smoothed, all_xy, all_y0, all_x0, counts = [], [], [], [], []
     levels = pyramid(image, cfg)
     # "pallas": every level's scores, border mask and NMS in one kernel launch
     fused_scores = fast_scores_levels(levels, ths, b) if fused else None
@@ -228,6 +290,7 @@ def extract_orb(image: torch.Tensor, cfg: ORBConfig) -> Keypoints:
         flat_idx, s = _grid_topk(rank, cfg.grid_rows, cfg.grid_cols, k_cell)
         xy = torch.stack([flat_idx % Wl, flat_idx // Wl], dim=-1)
         smoothed.append(_smooth(img_l, cfg.smooth_width))
+        all_xy.append(xy)
         y0, x0 = _patch_origins((Hl, Wl), xy, r)
         all_y0.append(y0)
         all_x0.append(x0)
@@ -240,10 +303,20 @@ def extract_orb(image: torch.Tensor, cfg: ORBConfig) -> Keypoints:
         all_valid.append(s > 0.0)
 
     # every level's patches in one kernel launch ("pallas") or the plain
-    # gather ("xla"), then BRIEF on all of them at once
+    # gather ("xla")
     extract = extract_patches_levels if patch_backend == "pallas" else extract_patches_levels_plain
     patches = extract(smoothed, torch.cat(all_y0), torch.cat(all_x0), counts, r)
-    desc = _describe_upright(patches, cfg.brief_seed, cfg.descriptor_bits, cfg.patch_size)
+    if cfg.steer:
+        # the IC angle of every keypoint at once, then the rotated pattern
+        # gathered from each smoothed level
+        angle = orientation_from_patches(patches, cfg.half_patch)
+        pattern = _pattern(cfg.brief_seed, cfg.descriptor_bits, cfg.patch_size, dev)
+        desc = torch.cat([describe(img_s, xy, a, pattern)
+                          for img_s, xy, a in zip(smoothed, all_xy, torch.split(angle, counts))])
+    else:
+        # upright BRIEF on all the patches at once
+        angle = torch.zeros(sum(counts), dtype=image.dtype, device=dev)
+        desc = _describe_upright(patches, cfg.brief_seed, cfg.descriptor_bits, cfg.patch_size)
 
     rank = torch.cat(all_rank)
     valid = torch.cat(all_valid)
@@ -253,7 +326,7 @@ def extract_orb(image: torch.Tensor, cfg: ORBConfig) -> Keypoints:
     return Keypoints(
         uv=torch.cat(all_uv)[top_i],
         response=torch.cat(all_score)[top_i],
-        angle=torch.zeros(top_i.shape, dtype=image.dtype, device=dev),
+        angle=angle[top_i],
         level=torch.cat(all_level)[top_i],
         valid=top_r > 0.0,
         desc=desc[top_i],

@@ -1,7 +1,7 @@
 """Host ms/frame and device busy time of one tracking path on one CUDA
 card, for whichever checkout of the port is first on ``sys.path``:
 
-    PYTHONPATH=<checkout> python3 stereo_semantic_vo_tpu_torch/tools/path_profile.py --path {sparse,dense,knob,online} --label NAME
+    PYTHONPATH=<checkout> python3 stereo_semantic_vo_tpu_torch/tools/path_profile.py --path {sparse,dense,knob,online,steered} --label NAME
 
 ``--path dense`` (the default) is the dense + window-BA path
 (``sparse_mode="dense"``, window BA every frame); ``--path sparse`` the
@@ -9,7 +9,8 @@ main path, ``VOConfig.kitti()`` as it is; ``--path knob`` the sparse path
 with the FAST kernel and the fused motion-BA build (``orb.fast_backend``
 and ``ba.hessian_backend`` = "pallas"); ``--path online`` the sparse path
 with online detection (``zoo.kitti_tiny_v2`` with random weights on a
-side CUDA stream, one frame late, in place of the offline boxes).  It drives
+side CUDA stream, one frame late, in place of the offline boxes);
+``--path steered`` the sparse path with steered BRIEF (``orb.steer``).  It drives
 ``VOPipeline`` of ``VOConfig.kitti("00")`` over the procedural 1241x376
 two-plane sequence (a detection box every fifth frame, as
 ``chip_smoke.py`` feeds it): ``--warmup`` frames, then ``--frames`` frames
@@ -44,7 +45,7 @@ HAND_KERNELS = ("extract_patches", "keypoint_stereo", "fused_best_match", "fast_
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("sparse", "dense", "knob", "online"), default="dense")
+    ap.add_argument("--path", choices=("sparse", "dense", "knob", "online", "steered"), default="dense")
     ap.add_argument("--label", default="")
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--frames", type=int, default=10)
@@ -54,6 +55,8 @@ def main() -> None:
     k = VOConfig.kitti("00")
     if args.path in ("sparse", "online"):
         cfg = k
+    elif args.path == "steered":
+        cfg = dataclasses.replace(k, orb=dataclasses.replace(k.orb, steer=True))
     elif args.path == "dense":
         cfg = dataclasses.replace(k, stereo=dataclasses.replace(k.stereo, sparse_mode="dense"))
     else:

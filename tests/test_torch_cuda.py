@@ -16,7 +16,15 @@ motion-only build rtol 2e-5, atol 1e-6 x max|plain|, cost rtol 1e-5
 (tests/test_ba_hessian.py's bounds: float32 sums in another order); FAST
 scores and the Hamming matrix exact; the online detector on the card
 against the CPU (cuDNN against the CPU's convolutions, TF32 off): head maps
-rtol 1e-4, atol 1e-4 x max|CPU|, boxes 1e-2 px where valid, valid equal."""
+rtol 1e-4, atol 1e-4 x max|CPU|, boxes 1e-2 px where valid, valid equal;
+steered ORB on the card against the CPU: keypoints exact, at most 0.5% of
+the descriptor bits differ (the moments' sums run in another order); the
+volume stereo modes on the card against the CPU and against B2 where the
+strip is not clamped: valid equal, disparity 1e-4 px; the data-parallel
+tracker's streams equal, bit for bit, their single-stream runs; the sharded
+BA at one rank over NCCL equal to ``local_ba`` with the same einsum build,
+and within tests/test_sharded_ba.py's bounds of the B7 build; two ranks
+over NCCL (two cards) within the worker's bounds."""
 
 import dataclasses
 
@@ -793,3 +801,189 @@ def test_side_stream_detection_is_awaited_by_the_next_frame(monkeypatch):
         want = det.detect(torch.from_numpy(src(i)[0]).to(dev) / 255.0)
         assert torch.equal(valid, want.valid) and bool(valid.any())
         assert float((boxes[valid] - want.boxes[want.valid]).abs().max()) <= DET_BOX_TOL_PX
+
+
+# --- steered BRIEF, the volume stereo modes and parallel/ (dp tracker,
+# landmark-sharded BA over NCCL)
+
+STEER_BITS_MAX = 0.005  # of the valid keypoints' descriptor bits, card vs CPU
+
+
+def _steer_cfg():
+    k = VOConfig.kitti()
+    return dataclasses.replace(k, orb=dataclasses.replace(k.orb, steer=True))
+
+
+def test_steered_orb_on_the_card_matches_the_cpu():
+    """Steered ORB at 1241x376, K=512, 8 levels: keypoints exact, B1 once;
+    responses within rtol 1e-6 (the pyramid's resize matmuls round in
+    cuBLAS's order on the card); the moments (cuBLAS against the CPU's sum
+    order) may turn an angle by an ulp and flip a few bits: at most 0.5%."""
+    dev = cuda_device()
+    cfg = _steer_cfg()
+    img = torch.from_numpy(two_plane_frame_source(H, W)(3)[0])
+    before = TP.extract_patches_levels.launches
+    got = extract_orb(img.to(dev), cfg.orb)
+    torch.cuda.synchronize()
+    assert TP.extract_patches_levels.launches == before + 1
+    want = extract_orb(img, cfg.orb)
+    for f in ("uv", "level", "valid"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert torch.allclose(got.response.cpu(), want.response, rtol=1e-6, atol=0.0)
+    v = want.valid
+    x = (got.desc.cpu()[v] ^ want.desc[v]).numpy().view(np.uint8)
+    differ = int(np.unpackbits(x).sum())
+    assert differ <= STEER_BITS_MAX * int(v.sum()) * 256, differ
+    assert float((got.angle.cpu() - want.angle).abs().max()) < 1e-2
+
+
+@pytest.mark.parametrize("mode", ["volume", "volume2"])
+def test_volume_modes_on_the_card_match_the_cpu_and_strips(mode):
+    """At 1241x376 with K=512 ORB keypoints: the card against the CPU (valid
+    equal, disparity within 1e-4 px) and against B2 ("pallas") where the
+    right strip is not clamped (ROADMAP C: the clamped strip reads
+    disparity d at d - shift)."""
+    dev = cuda_device()
+    cfg = VOConfig.kitti()
+    left, right = (torch.from_numpy(a) for a in two_plane_frame_source(H, W)(3))
+    kp = extract_orb(left, cfg.orb)
+    sc = dataclasses.replace(cfg.stereo, sparse_mode=mode)
+    cpu = sparse_disparity(left, right, kp.uv, kp.valid, Camera.from_config(cfg.camera, "cpu"), sc)
+    cam = Camera.from_config(cfg.camera, dev)
+    args = (left.to(dev), right.to(dev), kp.uv.to(dev), kp.valid.to(dev), cam)
+    card = sparse_disparity(*args, sc)
+    b2 = sparse_disparity(*args, dataclasses.replace(cfg.stereo, sparse_mode="pallas"))
+    assert torch.equal(card.valid.cpu(), cpu.valid) and int(cpu.valid.sum()) > 200
+    assert float((card.disparity.cpu() - cpu.disparity).abs().max()) <= 1e-4
+    inside = TS.keypoint_origins(kp.uv, H, W, cfg.stereo.max_disparity, cfg.stereo.block_radius)[3].to(dev) == 0
+    assert torch.equal(card.valid[inside], b2.valid[inside])
+    assert float((card.disparity[inside] - b2.disparity[inside]).abs().max()) <= 1e-4
+
+
+def _dp_frames(dev, ts):
+    src = two_plane_frame_source(H, W)
+    imgs = [src(i) for i in ts]
+    boxes = torch.zeros((len(ts), 32, 4), device=dev)
+    valid = torch.zeros((len(ts), 32), dtype=torch.bool, device=dev)
+    return TT.FrameInput(*(torch.from_numpy(np.stack([im[j] for im in imgs])).to(dev) for j in (0, 1)), boxes, valid)
+
+
+def test_dp_streams_equal_single_stream_runs_and_read_nothing_back():
+    """Three streams on one card, each on its own CUDA stream, starting at
+    steps 0, 1, 2 on offset frames: each stream's outputs and state equal,
+    bit for bit, its own init_step / track_step run; a step under sync
+    debug mode raises nothing."""
+    from stereo_semantic_vo_tpu_torch.parallel import dp_tracker as TDP
+
+    dev = cuda_device()
+    cfg = dataclasses.replace(VOConfig.kitti(), camera=CameraConfig(width=W, height=H))
+    B, steps = 3, 4
+    step = TDP.make_dp_tracker([dev], cfg)
+    states = TDP.batched_init_state(cfg, B, [dev])
+    singles, outs = [None] * B, []
+    for s in range(steps):
+        frames = _dp_frames(dev, [s + b for b in range(B)])
+        for b in range(B):
+            if s == b:
+                states[b] = init_state(cfg, dev)
+                singles[b] = (init_state(cfg, dev), [])
+        if s == steps - 1:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            states, out = step(states, frames)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs.append(out)
+        for b in range(B):
+            if singles[b] is not None:
+                st, seq = singles[b]
+                st, o = (TT.init_step if st.frame_idx < 0 else TT.track_step)(
+                    st, TT.FrameInput(*(x[b] for x in frames)), cfg)
+                singles[b] = (st, seq + [(s, o)])
+    torch.cuda.synchronize()
+    for b in range(B):
+        st, seq = singles[b]
+        for s, o in seq:
+            for name, x in zip(o._fields, o):
+                assert torch.equal(getattr(outs[s], name)[b], x), (b, s, name)
+        for name, x in st._asdict().items():
+            y = getattr(states[b], name)
+            assert (x == y) if name == "frame_idx" else torch.equal(x, y), (b, name)
+    assert all(bool(outs[-1].pnp_ok[b]) for b in range(B))
+
+
+def _ba_free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_sharded_ba_one_rank_over_nccl_equals_local_ba():
+    """``make_sharded_local_ba`` at world size 1 over NCCL, in this process,
+    against ``local_ba`` with the same einsum build (equal: an all-reduce
+    over one rank is the identity) and with B7 (tests/test_sharded_ba.py's
+    bounds: cost rtol 1e-3, poses atol 5e-3, median point difference under
+    0.05 m); one sharded solve reads nothing back."""
+    import torch.distributed as dist
+
+    from stereo_semantic_vo_tpu_torch.core.config import BAConfig
+    from stereo_semantic_vo_tpu_torch.ops.local_ba import local_ba
+    from stereo_semantic_vo_tpu_torch.parallel import mesh as TM
+    from stereo_semantic_vo_tpu_torch.parallel.sharded_ba import make_sharded_local_ba
+
+    dev = cuda_device()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_ba_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = TM.make_mesh(device="cuda")
+        assert mesh.device == dev and mesh.size == 1
+        poses, X, obs, mask, cam, delta, ur, rm = _ba_problem(dev, 4, 2048, True, seed=2)
+        X0, pv = X + 0.1, torch.ones(2048, dtype=torch.bool, device=dev)
+        cfg = BAConfig(local_iterations=5)
+        run = make_sharded_local_ba(mesh, cam, cfg, stereo_edges=True)
+        got = run(poses, X0, obs, mask, pv, ur, rm)
+        want = local_ba(poses, X0, obs, mask, pv, cam, cfg, obs_ur=ur, obs_r_mask=rm)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        b7 = local_ba(poses, X0, obs, mask, pv, cam, dataclasses.replace(cfg, local_hessian_backend="pallas"),
+                      obs_ur=ur, obs_r_mask=rm)
+        assert abs(float(got.cost) - float(b7.cost)) <= 1e-3 * abs(float(b7.cost))
+        assert float((got.poses - b7.poses).abs().max()) <= 5e-3
+        assert float(torch.median(torch.linalg.vector_norm(got.points - b7.points, dim=1))) < 0.05
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run(poses, X0, obs, mask, pv, ur, rm)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_ba_two_ranks_over_nccl():
+    """Two processes, a card each, NCCL: each rank's sharded solve against
+    a process-local ``local_ba`` (tests/torch_sharded_ba_worker.py)."""
+    import os
+    import subprocess
+    import sys
+
+    cuda_device()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_sharded_ba_worker.py")
+    coord = f"127.0.0.1:{_ba_free_port()}"
+    procs = [subprocess.Popen([sys.executable, worker, coord, "2", str(pid), "cuda"], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for pid in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0 and "PARITY_OK" in out and "ranks=2" in out, out

@@ -107,8 +107,11 @@ def test_extract_orb_three_levels_agree(img):
 
 
 def test_unported_orb_options_raise(img):
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        TO.extract_orb(t(img), TORB(steer=True))
+    """No ORB option is left unported: ``steer=True``, refused until steered
+    BRIEF was ported, now runs (tests/test_torch_steer.py holds it to the
+    JAX package)."""
+    kp = TO.extract_orb(t(img), TORB(max_keypoints=64, n_levels=2, steer=True))
+    assert int(kp.valid.sum()) > 0 and float(kp.angle.abs().max()) > 0.0
 
 
 def test_cpu_wrapper_takes_plain_version(img):

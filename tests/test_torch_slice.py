@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from stereo_semantic_vo_tpu.core.config import VOConfig as JVO
 from stereo_semantic_vo_tpu.engine import tracker as JT
@@ -26,6 +27,7 @@ from stereo_semantic_vo_tpu_torch import interop
 from stereo_semantic_vo_tpu_torch.engine import tracker as TT
 from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline
 from stereo_semantic_vo_tpu_torch.engine.state import init_state as t_init_state
+from stereo_semantic_vo_tpu_torch.parallel.mesh import LANDMARK_AXIS, Mesh
 from tests.test_tracker import CFG, TX_STEP, render
 from tests.torch_parity import n, rot_angle, t
 
@@ -157,9 +159,12 @@ def test_pipeline_on_cpu_writes_trajectories(tmp_path):
         assert len(open(tmp_path / name).read().strip().split("\n")) == 3
 
 
-@pytest.mark.parametrize("kwargs", [{"ba_mesh": object()}])
+@pytest.mark.parametrize("kwargs", [{"ba_mesh": Mesh((torch.device("meta"),), (LANDMARK_AXIS,)), "local_ba_every": 1}])
 def test_pipeline_unported_arguments_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``ba_mesh``, refused until the sharded window BA was ported, is
+    taken now (tests/test_torch_sharded_ba.py); a mesh whose rank runs on
+    another device than the pipeline is refused."""
+    with pytest.raises(ValueError, match="the mesh's rank runs on meta, the pipeline on cpu"):
         VOPipeline(_kitti_knobs()[1], device="cpu", **kwargs)
 
 

@@ -191,10 +191,18 @@ def test_keypoint_disparity_matches_jax_strips_at_other_windows(D_, r):
 
 @pytest.mark.parametrize("mode", ["volume", "volume2"])
 def test_unported_modes_raise(mode):
+    """The whole-image modes, refused until they were ported, now run and
+    match the JAX package's (tests/test_torch_volume_stereo.py has the
+    rest): valid equal, disparity within 1e-4 px, depth rtol 1e-5."""
     left, right = _scene()
-    uv, valid = _keypoints(*left.shape, K=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        t_sparse(t(left), t(right), t(uv), t(valid), TCam.from_config(CameraConfig(), "cpu"), TSC(sparse_mode=mode))
+    uv, valid = _keypoints(*left.shape)
+    a = j_sparse(jnp.asarray(left), jnp.asarray(right), jnp.asarray(uv), jnp.asarray(valid),
+                 JCam.from_config(CameraConfig()), StereoConfig(sparse_mode=mode))
+    b = t_sparse(t(left), t(right), t(uv), t(valid), TCam.from_config(CameraConfig(), "cpu"), TSC(sparse_mode=mode))
+    np.testing.assert_array_equal(n(b.valid), n(a.valid))
+    assert n(a.valid).sum() > 20
+    np.testing.assert_allclose(n(b.disparity), n(a.disparity), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(n(b.depth), n(a.depth), rtol=1e-5)
 
 
 def test_dense_mode_matches_jax():

@@ -6,6 +6,7 @@ on the CPU, where its Pallas kernels run in interpret mode."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 
@@ -38,3 +39,17 @@ def rot_angle(R) -> float:
     R = np.asarray(R, np.float64)
     vee = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
     return float(np.arctan2(np.linalg.norm(vee) / 2.0, (np.trace(R) - 1.0) / 2.0))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a test module on one intra-op thread, then restore the count.
+    Under the suite's parallel workers, torch's default of a thread a core
+    in every worker oversubscribes the cores, and a step of many small ops
+    waits on its threads: one dp-tracker test took 203 s against 7.4 s on
+    an 8-core host with 7 busy processes beside it.  Import it into a test
+    module to use it there."""
+    count = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(count)
