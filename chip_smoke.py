@@ -53,7 +53,26 @@ Phases, each of which raises (exit code != 0) when it fails:
    stereo edges) and ``VOPipeline(ba_mesh=..., local_ba_every=1)``
    against the pipeline without a mesh, no host sync in a sharded refine;
 14. the replicated detector (``parallel/semantic_head``) on two frames
-   against ``YoloDetector.detect`` of each.
+   against ``YoloDetector.detect`` of each;
+15. detector training at full width: ``models/yolo_train.YoloTrainer`` on
+   ``zoo.KITTI_TINY_V2_CFG`` with the replay-training tool's training lines
+   (352x352, 8 images a step, 8 truth slots; smoke frames letterboxed by the
+   tool's ``to_net``, truths from their boxes through ``boxes_to_truths``):
+   20 steps on the card, the loss finite at each, the counters, the first 2
+   steps against the CPU (loss and every param, statistic and momentum
+   buffer), no host sync in a step's dispatch, the exported weights against
+   the folded params in ``YoloDetector``; then 5 steps of
+   ``zoo.TINY_V3_CFG`` (the yolo-loss heads) at 416x416, one against the
+   CPU.  Each prints ms a step, images/s, kernels a step, the device's busy
+   share of a profiled step and its conv FLOPs' share of the float32 peak;
+16. checkpoint and resume on the card: the sparse path for 10 frames,
+   ``utils/checkpoint.save_state``, ``load_state`` into a fresh pipeline
+   that tracks frames 10-19, bit for bit the first path's poses; one frame
+   under ``utils/profiling.device_trace`` writes a trace;
+17. the native frame loader (``io/native_loader``): whether it builds on
+   this machine and why not; where it does, PNGs of the scene decoded equal
+   to Pillow and ``io/kitti.iter_frames(..., image_hw=...)`` in order;
+   where it does not, ``iter_frames`` on Pillow.
 
 Each kernel's line entry carries its time and its plain version's (CUDA
 events, wrapper included; for the two BA builds beside ``step_ms``, a
@@ -115,6 +134,21 @@ DP_OFFSET = 2         # stream b sees the scene's frame t + 2b
 DP_BATCHES = (1, 2, 4)
 SHARDED_COST_RTOL, SHARDED_POSE_ATOL, SHARDED_POINT_MEDIAN_M = 1e-3, 5e-3, 0.05  # tests/test_sharded_ba.py:51-55
 N_SHARDED_FRAMES = 8  # the pipeline with a mesh, window BA every frame from frame 3
+N_TRAIN_STEPS = 20    # kitti_tiny_v2 training steps on the card, batch TRAIN_BATCH
+TRAIN_TIMED_FROM = 5  # its ms a step: CUDA-event median over steps 5-19
+N_TRAIN_CPU_STEPS = 2  # the first steps again on the host CPU
+N_V3_STEPS = 5        # tiny_v3 (the yolo-loss heads) steps on the card
+N_V3_CPU_STEPS = 1
+TRAIN_BATCH = 8       # images a step, as the replay-training tool feeds them ([net] batch stays 1)
+N_TRAIN_POOL = 16     # letterboxed smoke frames the batches cycle through
+# card vs CPU at full width: the loss rtol 1e-5; each param, statistic and
+# momentum buffer within 1.5e-2 of its L2 norm.  Float32 is not exact here:
+# the BN sums run over 8 x 352 x 352 pixels, and on two letterboxed smoke
+# frames the CPU's float32 gradients of kitti_tiny_v2 lie 4.0e-3 of a
+# leaf's norm from float64's (tests/test_torch_yolo_train_steps.py holds
+# them under half this bound)
+TRAIN_LOSS_RTOL, TRAIN_LEAF_L2_RTOL = 1e-5, 1.5e-2
+N_RESUME_AT, N_RESUME_FRAMES = 10, 20  # checkpoint after frame 9, resume on frames 10-19
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12    # float32 outside the tensor cores
 POPC_PER_CLOCK_PER_SM = 16
@@ -1327,6 +1361,231 @@ def compare_replicated_detector(cfg, dev, det) -> None:
         f"{DET_RTOL}; {ms:.3f} ms a batch")
 
 
+def train_pool(cfg, net: int, dev) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The first N_TRAIN_POOL smoke frames letterboxed to net x net by the
+    replay-training tool's ``to_net``, with their boxes as its
+    ``boxes_to_truths`` makes them (MAX_T slots), on ``dev``."""
+    from stereo_semantic_vo_tpu_torch.tools.train_replay_detector import boxes_to_truths, to_net
+
+    H, W = cfg.camera.height, cfg.camera.width
+    imgs, truths, masks = [], [], []
+    for _, left, _, boxes, valid, _ in frames(cfg, N_TRAIN_POOL):
+        imgs.append(to_net(left, net, net))
+        t, m = boxes_to_truths(boxes, valid, W, H, net, net)
+        truths.append(t)
+        masks.append(m)
+    return tuple(torch.from_numpy(np.stack(a)).to(dev) for a in (imgs, truths, masks))
+
+
+def train_batch(pool, s: int) -> tuple[torch.Tensor, ...]:
+    """Step s's batch: pool entries 8s .. 8s + 7, cycling."""
+    idx = torch.arange(s * TRAIN_BATCH, (s + 1) * TRAIN_BATCH, device=pool[0].device) % pool[0].shape[0]
+    return tuple(a.index_select(0, idx) for a in pool)
+
+
+def compare_trainers(label: str, gpu, cpu) -> tuple[float, float]:
+    """Every param, rolling statistic and momentum buffer of the card's
+    trainer against the CPU's.  -> the worst leaf's difference over its
+    L2 norm, and over its max |CPU| (for the record)."""
+    a, b = gpu.state, cpu.state
+    check((a.batch_num, a.seen) == (b.batch_num, b.seen), f"{label}: counters differ")
+    worst_l2, worst_max = 0.0, 0.0
+    for tree in ("params", "momentum"):
+        for li, leaves in getattr(b, tree).items():
+            for k, want in leaves.items():
+                d = getattr(a, tree)[li][k].cpu().double() - want.double()
+                norm, top = float(want.double().norm()), float(want.abs().max())
+                if norm == 0.0:  # a leaf still at zero (no step has moved it) is zero on both
+                    check(float(d.abs().max()) == 0.0, f"{label}: {tree} of layer {li} {k} is zero on the CPU only")
+                    continue
+                l2 = float(d.norm()) / norm
+                worst_l2, worst_max = max(worst_l2, l2), max(worst_max, float(d.abs().max()) / top)
+                check(l2 <= TRAIN_LEAF_L2_RTOL, f"{label}: {tree} of layer {li} {k} differs by {l2:.3g} of its norm")
+    return worst_l2, worst_max
+
+
+def drive_trainer(label: str, cfg, dev, cfg_text: str, n_steps: int, n_cpu: int, card: str):
+    """Train ``cfg_text`` (with the replay tool's training lines) for
+    ``n_steps`` steps of TRAIN_BATCH smoke frames on the card, the first
+    ``n_cpu`` also on the host CPU; check and time them.  -> the trainer."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from stereo_semantic_vo_tpu_torch.models.yolo_train import YoloTrainer
+    from stereo_semantic_vo_tpu_torch.tools.train_replay_detector import MAX_T, train_cfg
+
+    text = train_cfg(cfg_text)
+    gpu, cpu = YoloTrainer(text, seed=0, device=dev), YoloTrainer(text, seed=0, device="cpu")
+    check(gpu.net_w == gpu.net_h and gpu.batch == 1, f"{label}: net {gpu.net_w}x{gpu.net_h}, batch {gpu.batch}")
+    pool = train_pool(cfg, gpu.net_w, dev)
+    pool_cpu = tuple(a.cpu() for a in pool)
+    check(pool[1].shape[1] == MAX_T and bool(pool[2].any()), f"{label}: no truth in the pool")
+    losses, times, loss_err = [], [], 0.0
+    for s in range(n_steps):
+        batch = train_batch(pool, s)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        if s == 3:  # one step's dispatch under sync debug mode; its loss is read after
+            no_sync(f"{label}: one train step's dispatch", lambda: losses.append(gpu.step(*batch)[0]))
+            losses[-1] = float(losses[-1])
+        else:
+            losses.append(gpu.train_step(*batch)[0])
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+        check(math.isfinite(losses[-1]), f"{label}: loss {losses[-1]} at step {s}")
+        if s < n_cpu:
+            lc = cpu.train_step(*train_batch(pool_cpu, s))[0]
+            loss_err = max(loss_err, abs(losses[-1] - lc) / abs(lc))
+            check(loss_err <= TRAIN_LOSS_RTOL, f"{label}: step {s} loss {losses[-1]} on the card, {lc} on the CPU")
+            if s == n_cpu - 1:
+                leaf_l2, leaf_max = compare_trainers(label, gpu, cpu)
+    seen, batch_num = gpu.seen, gpu.batch_num
+    check(seen == n_steps * TRAIN_BATCH and batch_num == n_steps,
+          f"{label}: seen {seen}, batch_num {batch_num} after {n_steps} steps")
+    timed = times[TRAIN_TIMED_FROM:] if n_steps > TRAIN_TIMED_FROM + 2 else times[1:]
+    ms = float(np.median(timed))
+    batch = train_batch(pool, 0)
+    train_breakdown(label, gpu, batch, card)
+    n_k, n_c = device_events(lambda: gpu.step(*batch))
+    busy, wall, _ = device_busy(lambda: gpu.train_step(*batch))
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        gpu.net(batch[0][:1].permute(0, 3, 1, 2).contiguous())
+    step_flops = 3.0 * fc.get_total_flops() * TRAIN_BATCH
+    bound_ms = step_flops / FP32_FLOP_PER_S * 1e3
+    say(f"{label} training: {n_steps} steps of {TRAIN_BATCH} images {gpu.net_w}x{gpu.net_h} on the card, loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f}, finite at every step, seen {seen}, batch_num {batch_num}; "
+        f"first {n_cpu} steps against the CPU: loss rtol {loss_err:.3g} (bound {TRAIN_LOSS_RTOL}), every leaf "
+        f"within {leaf_l2:.3g} of its norm (bound {TRAIN_LEAF_L2_RTOL}; the worst element {leaf_max:.3g} of the "
+        f"leaf's max)")
+    say(f"{label} training: {ms:.3f} ms a step (CUDA-event median over steps {len(times) - len(timed)}-"
+        f"{n_steps - 1}), {TRAIN_BATCH / ms * 1e3:.1f} images/s, {n_k} kernels and {n_c} copies or fills a step; "
+        f"profiled step: device busy {busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.1f}%, idle "
+        f"{100 * (1 - busy / wall):.1f}%); conv {fc.get_total_flops() / 1e9:.3f} GFLOP an image forward, "
+        f"{step_flops / 1e9:.2f} GFLOP a step (3x forward), bound {bound_ms:.3f} ms at "
+        f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s float32: {100 * bound_ms / ms:.1f}% of the peak; card {card}")
+    return gpu
+
+
+def train_breakdown(label: str, tr, batch, card: str) -> None:
+    """Where a training step's time goes: kernels and card ms (CUDA-event
+    medians of the dispatch, which the host bounds) of the net's forward
+    pass, then with the losses, then of the whole step; the differences
+    are the losses' and the backward pass with the update's."""
+    from stereo_semantic_vo_tpu_torch.core.precision import f32_matmul
+
+    x = batch[0].permute(0, 3, 1, 2).contiguous()
+    parts = {"forward": lambda: tr.net(x), "forward + loss": lambda: tr.loss(x, batch[1], batch[2]),
+             "step": lambda: tr.step(*batch)}
+    got = {}
+    for name, fn in parts.items():
+        with f32_matmul():
+            got[name] = (device_events(fn)[0], median_ms(fn, reps=10, warmup=2))
+    (kf, tf), (kl, tl), (ks, ts) = got.values()
+    slots = batch[1].shape[1] * tr.net.n_heads
+    say(f"{label} step breakdown: forward {kf} kernels {tf:.3f} ms; losses {kl - kf} kernels {tl - tf:.3f} ms "
+        f"({(kl - kf) / slots:.1f} kernels a truth slot and head, {slots} of them); backward and update "
+        f"{ks - kl} kernels {ts - tl:.3f} ms; the step {ks} kernels {ts:.3f} ms (card ms: CUDA events around "
+        f"the dispatch); card {card}")
+
+
+def compare_exported_detector(cfg, dev, tr, cfg_text: str) -> None:
+    """``export_weights`` loaded by ``YoloDetector`` against
+    ``folded_params`` through ``from_params``, on the card: equal
+    detections on smoke frame 0."""
+    from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
+    from stereo_semantic_vo_tpu_torch.models.yolo import YoloDetector
+    from stereo_semantic_vo_tpu_torch.tools.train_replay_detector import train_cfg
+
+    text = train_cfg(cfg_text)
+    img = torch.from_numpy(two_plane_frame_source(cfg.camera.height, cfg.camera.width)(0)[0] / 255.0).to(dev)
+    a = YoloDetector(text, weights_bytes=tr.export_weights(), conf_threshold=0.01, device=dev).detect(img)
+    b = YoloDetector.from_params(text, tr.folded_params(), conf_threshold=0.01, device=dev).detect(img)
+    check(all(torch.equal(x, y) for x, y in zip(a, b)), "exported weights and folded params detect differently")
+    say(f"trained kitti_tiny_v2: export_weights -> YoloDetector(weights_bytes=...) equals "
+        f"YoloDetector.from_params(folded_params()) on the card, {int(b.valid.sum())} boxes at conf 0.01")
+
+
+def resume_from_checkpoint(cfg, dev, slice_poses: np.ndarray) -> None:
+    """The sparse path for N_RESUME_AT frames, a checkpoint, a fresh
+    pipeline resumed from it on frames N_RESUME_AT .. N_RESUME_FRAMES - 1:
+    its poses bit for bit the uninterrupted first path's; then one frame
+    under ``device_trace``."""
+    from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline
+    from stereo_semantic_vo_tpu_torch.utils.checkpoint import load_state, save_state
+    from stereo_semantic_vo_tpu_torch.utils.profiling import device_trace
+
+    seq = list(frames(cfg, N_RESUME_FRAMES + 1))
+    first = VOPipeline(cfg, device=dev, write_trajectory=False)
+    first.run(iter(seq[:N_RESUME_AT]), prefetch=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        t0 = time.perf_counter()
+        save_state(path, first.state)
+        save_ms, size = (time.perf_counter() - t0) * 1e3, os.path.getsize(path)
+        second = VOPipeline(cfg, device=dev, write_trajectory=False)
+        t0 = time.perf_counter()
+        second.resume(load_state(path, second.state))
+        load_ms = (time.perf_counter() - t0) * 1e3
+    check(second.state.frame_idx == N_RESUME_AT - 1 and second.state.T_cw.device == dev,
+          f"resumed state at frame {second.state.frame_idx} on {second.state.T_cw.device}")
+    second.run(iter(seq[N_RESUME_AT:N_RESUME_FRAMES]), prefetch=False)
+    poses = np.stack([o.T_wc.cpu().numpy() for o in first.outputs + second.outputs])
+    check(poses.shape[0] == N_RESUME_FRAMES and np.array_equal(poses, slice_poses[:N_RESUME_FRAMES]),
+          "resumed poses differ from the uninterrupted run's")
+    say(f"checkpoint: sparse path saved after frame {N_RESUME_AT - 1} ({size} bytes, {save_ms:.1f} ms), loaded into "
+        f"a fresh pipeline ({load_ms:.1f} ms) that tracked frames {N_RESUME_AT}-{N_RESUME_FRAMES - 1}: poses bit "
+        f"for bit the first path's")
+    _, left, right, boxes, valid, ts = seq[N_RESUME_FRAMES]
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp):
+            second.process_frame(left, right, boxes, valid, ts)
+            torch.cuda.synchronize()
+        files = [os.path.join(tmp, f) for f in os.listdir(tmp)]
+        check(len(files) == 1 and files[0].endswith(".pt.trace.json"), f"device_trace wrote {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        n_kernels = sum(e.get("cat") == "kernel" for e in events)
+        check(n_kernels > 0, "the trace of a frame holds no kernel")
+        say(f"device_trace: one sparse frame under torch.profiler wrote {os.path.basename(files[0])}, "
+            f"{os.path.getsize(files[0])} bytes, {len(events)} events, {n_kernels} kernels")
+
+
+def native_loader_state(cfg) -> None:
+    """Whether the native loader builds here; PNGs of the scene through it
+    (where it builds) and through ``iter_frames(..., image_hw=...)``."""
+    from PIL import Image
+
+    from stereo_semantic_vo_tpu_torch.io import kitti, native_loader
+
+    H, W, n = cfg.camera.height, cfg.camera.width, 4
+    ok = native_loader.available()
+    say(f"native loader: available() = {ok}" + ("" if ok else f"; why: {native_loader.why_unavailable()}"))
+    with tempfile.TemporaryDirectory() as seq:
+        want = []
+        for side in ("image_2", "image_3"):
+            os.makedirs(os.path.join(seq, side))
+        for t, left, right, _, _, _ in frames(cfg, n):
+            pair = []
+            for side, img in (("image_2", left), ("image_3", right)):
+                path = os.path.join(seq, side, f"{t:06d}.png")
+                Image.fromarray(img.astype(np.uint8)).save(path)
+                pair.append(kitti.load_image_gray(path))
+            want.append(pair)
+        np.savetxt(os.path.join(seq, "times.txt"), np.arange(n) / cfg.camera.fps)
+        paths = kitti.load_sequence_paths(seq)
+        if ok:
+            for t in range(n):
+                check(np.array_equal(native_loader.decode_gray(paths.left[t], H, W), want[t][0]),
+                      f"native decode of frame {t} differs from Pillow's")
+        got = list(kitti.iter_frames(paths, None, cfg.semantic.max_boxes, image_hw=(H, W)))
+        check([g[0] for g in got] == list(range(n)), "iter_frames out of order")
+        for g, (left, right) in zip(got, want):
+            check(np.array_equal(g[1], left) and np.array_equal(g[2], right), f"iter_frames frame {g[0]} differs")
+    say(f"native loader: {n} stereo PNG pairs of the scene at {W}x{H} through iter_frames(..., image_hw=({H}, {W})) "
+        f"in order and equal to Pillow's decode, on the " + ("native prefetcher" if ok else "Pillow fallback")
+        + (", and decode_gray of each equal to Pillow's" if ok else ""))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the port on a GPU")
@@ -1456,6 +1715,19 @@ def main() -> None:
 
     # 14. the replicated detector
     compare_replicated_detector(cfg, dev, det)
+
+    # 15. detector training at full width: kitti_tiny_v2 (region loss), then tiny_v3 (yolo loss)
+    from stereo_semantic_vo_tpu_torch.models import zoo
+
+    tr = drive_trainer("kitti_tiny_v2", cfg, dev, zoo.KITTI_TINY_V2_CFG, N_TRAIN_STEPS, N_TRAIN_CPU_STEPS, card)
+    compare_exported_detector(cfg, dev, tr, zoo.KITTI_TINY_V2_CFG)
+    drive_trainer("tiny_v3", cfg, dev, zoo.TINY_V3_CFG, N_V3_STEPS, N_V3_CPU_STEPS, card)
+
+    # 16. checkpoint and resume on the card, and a device trace
+    resume_from_checkpoint(cfg, dev, slice_poses)
+
+    # 17. the native frame loader
+    native_loader_state(cfg)
 
     for e in entries:
         e["launches"] = sum(counts[e["name"]] for counts in by_path.values())

@@ -8,16 +8,25 @@ Layout (each module mirrors its counterpart in the JAX package):
   core/      configuration, SE(3)/SO(3), camera model, float32 precision
   kernels/   hand-written CUDA kernels for Hopper (sources in csrc/), each
              beside its plain PyTorch version, and the nvcc build
-  ops/       ORB (upright BRIEF), sparse stereo, epipolar test, RANSAC PnP,
-             motion-only BA
-  models/    the cfg-driven YOLO detector (cuDNN convolutions, decode, NMS)
-             and its model zoo
-  engine/    tracker state, init/track steps, sequence pipeline (online
-             detection one frame late on a side CUDA stream), trajectories
-  io/        KITTI loading, the procedural two-plane sequence, darknet cfg
-             and weights
+  ops/       ORB (upright and steered BRIEF), sparse and dense stereo,
+             epipolar test, RANSAC PnP, motion-only and local BA,
+             triangulation
+  models/    the cfg-driven YOLO detector (cuDNN convolutions, decode, NMS),
+             its model zoo, its trainer (live BN, region and yolo losses,
+             darknet's SGD) and the training augmentation
+  engine/    tracker state, init/track steps, window BA, sequence pipeline
+             (online detection one frame late on a side CUDA stream,
+             resume from a checkpoint), trajectories
+  parallel/  data-parallel tracker, landmark-sharded window BA, replicated
+             detector
+  io/        KITTI loading (native C++ prefetcher or Pillow), the procedural
+             two-plane sequence, darknet cfg and weights
   eval/      ATE / RPE
-  interop.py config and state exchange with the JAX package (numpy only)
+  utils/     checkpoints of the VO state, stage timer, profiler traces
+  viz/       trajectory, map, match and box figures (matplotlib)
+  tools/     on-card timing and profiling scripts, the replay-training tool
+  interop.py config, state and trainer-state exchange with the JAX package
+             (numpy only)
   run.py     the KITTI command line
 """
 

@@ -112,6 +112,13 @@ class VOPipeline:
         self._pending: tuple[Any, float] | None = None
         self._n_processed = 0
 
+    def resume(self, state) -> None:
+        """Continue a sequence from ``state`` (utils/checkpoint.load_state
+        on this pipeline's device): the next frame is ``state.frame_idx +
+        1`` and tracks against its map."""
+        self.state = state
+        self._n_processed = state.frame_idx + 1
+
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.array(a))  # a writable copy: callers may pass read-only views
         if self.device.type == "cuda":

@@ -2,7 +2,8 @@
 
 The main path has no learned weights: its parameters are the config, the
 BRIEF pattern (a seeded numpy draw both packages make identically) and the
-tracker state; the detector's are its folded darknet params.  A batch of
+tracker state; the detector's are its folded darknet params, and the
+trainer's its raw params, momentum and two counters.  A batch of
 JAX states (the data-parallel tracker's, stacked on a leading axis) maps
 onto the port's list of per-stream states.  These functions take plain
 dataclasses and numpy arrays, so this module imports no JAX.
@@ -92,3 +93,42 @@ def params_to_numpy(params: Mapping[Any, Mapping[str, Any]]) -> dict[int, dict[s
     detector's ``params``) as float32 numpy arrays, for
     ``models/yolo.YoloDetector.from_params``."""
     return {int(k): {n: np.asarray(v, np.float32) for n, v in p.items()} for k, p in params.items()}
+
+
+def _oihw(k: str, v, device) -> torch.Tensor:
+    a = np.asarray(v, np.float32)
+    if k == "w":  # HWIO -> OIHW
+        a = np.transpose(a, (3, 2, 0, 1))
+    return torch.from_numpy(np.array(a, order="C")).to(device)  # copy: JAX buffers are read-only
+
+
+def train_state_from_numpy(params: Mapping[Any, Mapping[str, Any]], momentum: Mapping[Any, Mapping[str, Any]],
+                           batch_num: int, seen: int, device: torch.device | str = "cuda"):
+    """The JAX ``TrainState``'s fields (params and momentum as numpy trees,
+    e.g. through ``params_to_numpy``; conv weights HWIO) -> the port's
+    ``models/yolo_train.TrainState`` on ``device`` (conv weights OIHW),
+    for ``YoloTrainer.load_state``."""
+    from stereo_semantic_vo_tpu_torch.models.yolo_train import TrainState
+
+    def tree(ps):
+        return {int(li): {k: _oihw(k, v, device) for k, v in p.items()} for li, p in ps.items()}
+
+    return TrainState(params=tree(params), momentum=tree(momentum), batch_num=int(batch_num), seen=int(seen))
+
+
+def train_state_to_numpy(state) -> dict[str, Any]:
+    """The port's ``TrainState`` -> ``{"params", "momentum", "batch_num",
+    "seen"}`` in the JAX ``TrainState``'s layout: numpy float32 trees with
+    HWIO conv weights, int32 counters."""
+
+    def tree(ps):
+        out = {}
+        for li, p in ps.items():
+            out[li] = {}
+            for k, v in p.items():
+                a = v.detach().cpu().numpy()
+                out[li][k] = np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0))) if k == "w" else a
+        return out
+
+    return {"params": tree(state.params), "momentum": tree(state.momentum),
+            "batch_num": np.int32(state.batch_num), "seen": np.int32(state.seen)}

@@ -7,9 +7,9 @@ file per frame named ``<frame+1>.txt``) — but returns numpy arrays and fixed-
 shape padded box arrays for the tracker.
 
 Copied from ``stereo_semantic_vo_tpu.io.kitti``.  Decoding happens on the
-host with Pillow; the reference's optional native C++ prefetcher is not
-ported yet (ROADMAP A6), and the pipeline's prefetch thread overlaps decode
-with device compute instead.
+host: with the native C++ prefetcher (io/native_loader.py) where it builds,
+else with Pillow; the pipeline's prefetch thread overlaps either with device
+compute.
 """
 
 from __future__ import annotations
@@ -74,14 +74,35 @@ def iter_frames(
     boxes_dir: str | None,
     max_boxes: int,
     max_frames: int | None = None,
+    use_native: bool = True,
+    image_hw: tuple[int, int] | None = None,
 ) -> Iterator[tuple[int, np.ndarray, np.ndarray, np.ndarray, np.ndarray, float]]:
-    """Yield (idx, left, right, boxes, boxes_valid, timestamp) per frame."""
+    """Yield (idx, left, right, boxes, boxes_valid, timestamp) per frame.
+
+    When the native C++ prefetcher is buildable (and ``image_hw`` gives the
+    fixed frame size), decode runs ahead on a thread pool; otherwise falls
+    back to per-frame Pillow decode."""
     n = len(paths.left)
     if max_frames is not None:
         n = min(n, max_frames)
+
+    native_iter = None
+    if use_native and image_hw is not None:
+        from stereo_semantic_vo_tpu_torch.io import native_loader
+
+        if native_loader.available():
+            native_iter = iter(
+                native_loader.NativeFrameLoader(
+                    paths.left[:n], paths.right[:n], image_hw[0], image_hw[1]
+                )
+            )
+
     for i in range(n):
-        left = load_image_gray(paths.left[i])
-        right = load_image_gray(paths.right[i])
+        if native_iter is not None:
+            left, right = next(native_iter)
+        else:
+            left = load_image_gray(paths.left[i])
+            right = load_image_gray(paths.right[i])
         if boxes_dir is not None:
             # reference names files 1-based: bin/offline/0.05results/<n+1>.txt
             bpath = os.path.join(boxes_dir, f"{i + 1}.txt")

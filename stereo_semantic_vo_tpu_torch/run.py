@@ -81,7 +81,10 @@ def main() -> None:
         )
 
     paths = kitti.load_sequence_paths(args.sequence)
-    frames = kitti.iter_frames(paths, args.boxes_dir, cfg.semantic.max_boxes, args.max_frames)
+    frames = kitti.iter_frames(
+        paths, args.boxes_dir, cfg.semantic.max_boxes, args.max_frames,
+        image_hw=(cfg.camera.height, cfg.camera.width),
+    )
     pipe = VOPipeline(cfg, device=args.device, detector=detector, out_dir=args.out, local_ba_every=args.local_ba)
     summary = pipe.run(frames)
     report = {k: v for k, v in summary.items() if k != "positions"}

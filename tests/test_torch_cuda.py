@@ -24,7 +24,12 @@ strip is not clamped: valid equal, disparity 1e-4 px; the data-parallel
 tracker's streams equal, bit for bit, their single-stream runs; the sharded
 BA at one rank over NCCL equal to ``local_ba`` with the same einsum build,
 and within tests/test_sharded_ba.py's bounds of the B7 build; two ranks
-over NCCL (two cards) within the worker's bounds."""
+over NCCL (two cards) within the worker's bounds; three train steps on the
+card against the CPU: loss rtol 1e-4, every param, statistic and momentum
+buffer atol 1e-3 x max|CPU| (cuDNN's forward and backward convolutions sum
+in another order); a detector from the exported weights equal to one from
+the folded params; a pipeline resumed from a checkpoint equal, bit for bit,
+to the uninterrupted run."""
 
 import dataclasses
 
@@ -987,3 +992,221 @@ def test_sharded_ba_two_ranks_over_nccl():
                 p.kill()
     for p, out in zip(procs, outs):
         assert p.returncode == 0 and "PARITY_OK" in out and "ranks=2" in out, out
+
+
+# ---------------------------------------------------------------------------
+# detector training and checkpoint resume
+# ---------------------------------------------------------------------------
+
+# 64x64, batch 4: three conv-BN-leaky blocks and a region head (the JAX
+# package's tests/test_yolo_train.py TRAIN_CFG with burn-in off and lr 0.003,
+# so that three steps move the params)
+TRAIN_CFG = """
+[net]
+batch=4
+width=64
+height=64
+channels=3
+momentum=0.9
+decay=0.0005
+learning_rate=0.003
+burn_in=0
+policy=constant
+
+[convolutional]
+batch_normalize=1
+filters=8
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+size=1
+stride=1
+pad=1
+filters=30
+activation=linear
+
+[region]
+anchors = 0.5,0.5, 1.0,1.0, 2.0,2.0, 1.0,2.0, 2.0,1.0
+bias_match=1
+classes=1
+coords=4
+num=5
+softmax=1
+object_scale=5
+noobject_scale=1
+class_scale=1
+coord_scale=1
+thresh=.6
+rescore=0
+"""
+# its region head swapped for a two-scale yolo head pair (route, upsample)
+YOLO_TRAIN_CFG = TRAIN_CFG.split("[convolutional]\nsize=1")[0] + """[convolutional]
+size=1
+stride=1
+pad=1
+filters=21
+activation=linear
+
+[yolo]
+mask = 3,4,5
+anchors = 6,8, 10,14, 18,22, 24,30, 34,40, 48,56
+classes=2
+num=6
+ignore_thresh=.5
+
+[route]
+layers = -3
+
+[upsample]
+stride=2
+
+[route]
+layers = -1, -7
+
+[convolutional]
+size=1
+stride=1
+pad=1
+filters=21
+activation=linear
+
+[yolo]
+mask = 0,1,2
+anchors = 6,8, 10,14, 18,22, 24,30, 34,40, 48,56
+classes=2
+num=6
+ignore_thresh=.5
+"""
+TRAIN_LOSS_RTOL, TRAIN_ATOL_REL = 1e-4, 1e-3
+
+
+def _train_batch(dev, seed=0):
+    rng = np.random.RandomState(seed)
+    x = rng.rand(4, 64, 64, 3).astype(np.float32)
+    x[:, 8:28, 8:28] = 0.5  # constant regions: max-pool ties
+    t = np.zeros((4, 8, 5), np.float32)
+    m = np.zeros((4, 8), bool)
+    for b, boxes in enumerate([[(0.52, 0.53, 0.25, 0.25, 1), (0.55, 0.56, 0.25, 0.25, 0)],
+                               [(0.2, 0.7, 0.4, 0.45, 1)], [], [(0.8, 0.2, 0.1, 0.12, 0)]]):
+        for i, box in enumerate(boxes):
+            t[b, i], m[b, i] = box, True
+    return tuple(torch.from_numpy(a).to(dev) for a in (x, t, m))
+
+
+@pytest.mark.parametrize("cfg", [TRAIN_CFG, YOLO_TRAIN_CFG], ids=["region", "yolo"])
+def test_train_steps_on_the_card_match_the_cpu(cfg):
+    """Three ``train_step``s from the same seed on the card (cuDNN forward
+    and backward, TF32 off) and on the CPU: loss rtol 1e-4 at each step;
+    params, rolling statistics and momentum (the summed gradients) within
+    atol 1e-3 x max|CPU| per leaf; the counters equal."""
+    from stereo_semantic_vo_tpu_torch.models.yolo_train import YoloTrainer
+
+    dev = cuda_device()
+    gpu, cpu = YoloTrainer(cfg, seed=3, device=dev), YoloTrainer(cfg, seed=3, device="cpu")
+    for s in range(3):
+        lg = gpu.train_step(*_train_batch(dev, s))[0]
+        lc = cpu.train_step(*_train_batch("cpu", s))[0]
+        assert lg == pytest.approx(lc, rel=TRAIN_LOSS_RTOL)
+    a, b = gpu.state, cpu.state
+    assert (a.batch_num, a.seen) == (b.batch_num, b.seen) == (3, 12)
+    for tree in ("params", "momentum"):
+        for li, leaves in getattr(b, tree).items():
+            for k, want in leaves.items():
+                got = getattr(a, tree)[li][k].cpu()
+                assert torch.allclose(got, want, rtol=0, atol=TRAIN_ATOL_REL * float(want.abs().max())), (tree, li, k)
+
+
+def test_train_step_reads_nothing_back():
+    """A step's dispatch (forward, losses, backward, the darknet update) under
+    sync debug mode; ``train_step``'s one readback is the loss."""
+    from stereo_semantic_vo_tpu_torch.models.yolo_train import YoloTrainer
+
+    dev = cuda_device()
+    for cfg in (TRAIN_CFG, YOLO_TRAIN_CFG):
+        tr = YoloTrainer(cfg, seed=0, device=dev)
+        batch = _train_batch(dev)
+        tr.train_step(*batch)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss, stats = tr.step(*batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert loss.is_cuda and stats.count.is_cuda and bool(torch.isfinite(loss))
+        assert (tr.batch_num, tr.seen) == (2, 8)
+
+
+def test_exported_weights_detect_as_the_folded_params_on_the_card():
+    """After two steps on the card, ``export_weights`` loaded by
+    ``YoloDetector`` and ``folded_params`` through ``from_params`` detect
+    the same boxes, bit for bit (both fold the same numpy arrays)."""
+    from stereo_semantic_vo_tpu_torch.models.yolo import YoloDetector
+    from stereo_semantic_vo_tpu_torch.models.yolo_train import YoloTrainer
+
+    dev = cuda_device()
+    tr = YoloTrainer(TRAIN_CFG, seed=1, device=dev)
+    for s in range(2):
+        tr.train_step(*_train_batch(dev, s))
+    img = _train_batch(dev)[0][0]
+    a = YoloDetector(TRAIN_CFG, weights_bytes=tr.export_weights(), conf_threshold=0.01, device=dev).detect(img)
+    b = YoloDetector.from_params(TRAIN_CFG, tr.folded_params(), conf_threshold=0.01, device=dev).detect(img)
+    assert bool(b.valid.any())
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_checkpoint_resume_on_the_card_is_bit_equal(tmp_path):
+    """Six frames in one pipeline against three, ``save_state``,
+    ``load_state`` into a fresh pipeline and three more: equal poses and
+    state, bit for bit."""
+    from stereo_semantic_vo_tpu_torch.utils.checkpoint import load_state, save_state
+
+    dev = cuda_device()
+    cfg = _online_cfg()
+    src = two_plane_frame_source(240, 320)
+    nb = cfg.semantic.max_boxes
+    frames = [(i, *src(i), np.zeros((nb, 4), np.float32), np.zeros(nb, bool), 0.1 * i) for i in range(6)]
+    whole = VOPipeline(cfg, device=dev, write_trajectory=False)
+    whole.run(iter(frames), prefetch=False)
+    first = VOPipeline(cfg, device=dev, write_trajectory=False)
+    first.run(iter(frames[:3]), prefetch=False)
+    save_state(str(tmp_path / "c.npz"), first.state)
+    second = VOPipeline(cfg, device=dev, write_trajectory=False)
+    second.resume(load_state(str(tmp_path / "c.npz"), second.state))
+    assert second.state.T_cw.device == dev
+    second.run(iter(frames[3:]), prefetch=False)
+    for a, b in zip(whole.outputs, first.outputs + second.outputs):
+        assert torch.equal(a.T_wc, b.T_wc) and torch.equal(a.obs_uid, b.obs_uid)
+    for name in whole.state._fields[1:]:
+        assert torch.equal(getattr(whole.state, name), getattr(second.state, name)), name
