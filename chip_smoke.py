@@ -72,7 +72,23 @@ Phases, each of which raises (exit code != 0) when it fails:
 17. the native frame loader (``io/native_loader``): whether it builds on
    this machine and why not; where it does, PNGs of the scene decoded equal
    to Pillow and ``io/kitti.iter_frames(..., image_hw=...)`` in order;
-   where it does not, ``iter_frames`` on Pillow.
+   where it does not, ``iter_frames`` on Pillow;
+18. the reference's shipped mode through ``run.py``: 30 frames of the scene
+   with a moving object (``mover_frames``: a textured square moving down,
+   its box missed on every fifth frame) written as a KITTI directory with
+   the reference's box files and a ground-truth pose file, then
+   ``python -m stereo_semantic_vo_tpu_torch.run`` in a subprocess with the
+   default device, four times: offline boxes, ``--no-semantics`` (30
+   frames each, ``--gt``), ``--dense-stereo --local-ba 1`` and
+   ``--yolo-cfg`` (8 frames each).  Each exits 0 on the card with the
+   launch counts of its path (from its report) and poses within the
+   ground-truth bounds; the offline and ``--no-semantics`` trajectory
+   files are byte for byte those of ``VOPipeline`` on ``kitti.iter_frames``
+   of the same directory in this process; the offline run culls points in
+   the frames after a missed box and ``--no-semantics`` none; 8 frames of
+   the offline configuration on the host CPU agree in pose (their culled
+   counts are printed beside the card's); an offline-box ``track_step``
+   after a miss does not sync.
 
 Each kernel's line entry carries its time and its plain version's (CUDA
 events, wrapper included; for the two BA builds beside ``step_ms``, a
@@ -84,6 +100,9 @@ the bytes it must move at 3.35 TB/s or its operations at the card's peak
 rate for their type, whichever is larger, from this run's shapes) and, where
 one PyTorch call computes the same function, that call's time
 (``library_ms``; the port never calls it).
+
+``launches_by_path`` holds each path's count, the CLI runs' (``cli_*``)
+included; ``launches`` is their sum.
 
 Prints the card (``nvidia-smi``), one JSON line with the kernels, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -149,6 +168,15 @@ N_TRAIN_POOL = 16     # letterboxed smoke frames the batches cycle through
 # them under half this bound)
 TRAIN_LOSS_RTOL, TRAIN_LEAF_L2_RTOL = 1e-5, 1.5e-2
 N_RESUME_AT, N_RESUME_FRAMES = 10, 20  # checkpoint after frame 9, resume on frames 10-19
+N_CLI_FRAMES = 30        # run.py with offline boxes and with --no-semantics, on the mover scene
+N_CLI_SHORT_FRAMES = 8   # run.py --dense-stereo --local-ba 1 and --yolo-cfg
+N_CLI_CPU_FRAMES = 8     # the offline configuration again on the host CPU
+CLI_TIMEOUT_S = 300
+ATE_BOUND_M = 0.1        # run.py's ate_rmse_m against the ground-truth file
+MOVER_PX = 120           # the moving object's side
+MOVER_X, MOVER_Y0, MOVER_VY_PX = 560, 16, 8  # its left edge, first top edge and px a frame downward
+MOVER_MISS_EVERY = 5     # its box is missed on frames t % 5 == 0
+REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12    # float32 outside the tensor cores
 POPC_PER_CLOCK_PER_SM = 16
@@ -836,8 +864,6 @@ def drive_path(label: str, cfg, dev, n_frames: int, local_ba_every: int, kernels
     """Run one path on the card with every launch count set to 0 just
     before; check the counts, tracking and ground truth.  -> (pipe, wall
     seconds, poses, launches)."""
-    from stereo_semantic_vo_tpu_torch.io.synthetic import camera_x
-
     for k in kernels.values():
         k.launches = 0
     pipe, wall = run_slice(cfg, dev, n_frames, local_ba_every, detector, ba_mesh=ba_mesh)
@@ -847,15 +873,14 @@ def drive_path(label: str, cfg, dev, n_frames: int, local_ba_every: int, kernels
     check(len(poses) == n_frames and bool(np.isfinite(poses).all()), f"{label}: non-finite or missing poses")
     ok = [bool(o.pnp_ok) for o in pipe.outputs]
     check(all(ok[1:]), f"{label}: tracking lost at frames {[i for i, v in enumerate(ok) if not v]}")
-    gt_x = np.array([camera_x(t, cfg.camera.bf, cfg.camera.fx) for t in range(n_frames)])
-    pos_err = np.linalg.norm(poses[:, :3, 3] - np.stack([gt_x, 0 * gt_x, 0 * gt_x], -1), axis=1)
-    rot_err = np.array([rotation_angle(T[:3, :3]) for T in poses])
-    check(pos_err.max() <= POS_BOUND_M, f"{label}: position error {pos_err.max():.4f} m > {POS_BOUND_M} m")
-    check(rot_err.max() <= ROT_BOUND_RAD, f"{label}: rotation error {rot_err.max():.5f} rad > {ROT_BOUND_RAD} rad")
+    gt = ground_truth(cfg, n_frames)
+    pos_err, rot_err = pose_errors(poses, gt)
+    check(pos_err <= POS_BOUND_M, f"{label}: position error {pos_err:.4f} m > {POS_BOUND_M} m")
+    check(rot_err <= ROT_BOUND_RAD, f"{label}: rotation error {rot_err:.5f} rad > {ROT_BOUND_RAD} rad")
     n = lambda f: [int(getattr(o, f)) for o in pipe.outputs]  # noqa: E731
     say(f"{label}: {n_frames} frames 1241x376 on the card, all tracked; max position error "
-        f"{pos_err.max():.5f} m over {gt_x[-1]:.3f} m (bound {POS_BOUND_M}), max rotation error "
-        f"{rot_err.max():.6f} rad; launches {launches}")
+        f"{pos_err:.5f} m over {gt[-1, 0, 3]:.3f} m (bound {POS_BOUND_M}), max rotation error "
+        f"{rot_err:.6f} rad; launches {launches}")
     say(f"{label} counters: stereo {n('n_stereo')}; matches_last {n('n_matches_last')}; matches_map "
         f"{n('n_matches_map')}; pnp_inliers {n('n_pnp_inliers')}; culled {n('n_culled_dynamic')}")
     return pipe, wall, poses, launches
@@ -1550,29 +1575,42 @@ def resume_from_checkpoint(cfg, dev, slice_poses: np.ndarray) -> None:
             f"{os.path.getsize(files[0])} bytes, {len(events)} events, {n_kernels} kernels")
 
 
+def write_kitti_sequence(seq: str, frame_iter, fps: float, boxes_dir: str | None = None) -> int:
+    """Write (idx, left, right, boxes, valid, ts) frames as a KITTI sequence
+    directory: ``image_2/`` and ``image_3/`` 8-bit PNGs named by frame and
+    ``times.txt``; with ``boxes_dir``, each frame's valid boxes in the
+    reference's files (``<frame+1>.txt``, integer rows ``left right top
+    bottom``; a frame without one writes no file).  -> the frame count."""
+    from PIL import Image
+
+    for side in ("image_2", "image_3"):
+        os.makedirs(os.path.join(seq, side))
+    if boxes_dir is not None:
+        os.makedirs(boxes_dir)
+    n = 0
+    for t, left, right, boxes, valid, _ in frame_iter:
+        for side, img in (("image_2", left), ("image_3", right)):
+            Image.fromarray(img.astype(np.uint8)).save(os.path.join(seq, side, f"{t:06d}.png"))
+        if boxes_dir is not None and valid.any():
+            with open(os.path.join(boxes_dir, f"{t + 1}.txt"), "w") as f:
+                f.writelines(f"{x1} {x2} {y1} {y2}\n" for x1, y1, x2, y2 in boxes[valid].astype(int))
+        n += 1
+    np.savetxt(os.path.join(seq, "times.txt"), np.arange(n) / fps)
+    return n
+
+
 def native_loader_state(cfg) -> None:
     """Whether the native loader builds here; PNGs of the scene through it
     (where it builds) and through ``iter_frames(..., image_hw=...)``."""
-    from PIL import Image
-
     from stereo_semantic_vo_tpu_torch.io import kitti, native_loader
 
     H, W, n = cfg.camera.height, cfg.camera.width, 4
     ok = native_loader.available()
     say(f"native loader: available() = {ok}" + ("" if ok else f"; why: {native_loader.why_unavailable()}"))
     with tempfile.TemporaryDirectory() as seq:
-        want = []
-        for side in ("image_2", "image_3"):
-            os.makedirs(os.path.join(seq, side))
-        for t, left, right, _, _, _ in frames(cfg, n):
-            pair = []
-            for side, img in (("image_2", left), ("image_3", right)):
-                path = os.path.join(seq, side, f"{t:06d}.png")
-                Image.fromarray(img.astype(np.uint8)).save(path)
-                pair.append(kitti.load_image_gray(path))
-            want.append(pair)
-        np.savetxt(os.path.join(seq, "times.txt"), np.arange(n) / cfg.camera.fps)
+        write_kitti_sequence(seq, frames(cfg, n), cfg.camera.fps)
         paths = kitti.load_sequence_paths(seq)
+        want = [(kitti.load_image_gray(a), kitti.load_image_gray(b)) for a, b in zip(paths.left, paths.right)]
         if ok:
             for t in range(n):
                 check(np.array_equal(native_loader.decode_gray(paths.left[t], H, W), want[t][0]),
@@ -1586,20 +1624,193 @@ def native_loader_state(cfg) -> None:
         + (", and decode_gray of each equal to Pillow's" if ok else ""))
 
 
+def mover_frames(cfg, n: int):
+    """(idx, left, right, boxes, boxes_valid, timestamp) of the two-plane
+    scene with a moving object: a MOVER_PX square of random texture at the
+    far plane's disparity, MOVER_VY_PX px lower each frame (off the
+    horizontal epipolar lines of the sideways-moving camera), under a box 5
+    px outside it, as tests/test_semantic_culling.py draws its mover.  The
+    box is missed on frames t % MOVER_MISS_EVERY == 0, as a late detector
+    misses: map points are created on the object then, and the epipolar
+    test has them to cull in the frames that follow."""
+    from stereo_semantic_vo_tpu_torch.io.synthetic import D_FAR, two_plane_frame_source
+
+    src = two_plane_frame_source(cfg.camera.height, cfg.camera.width)
+    obj = np.random.RandomState(7).uniform(0, 255, (MOVER_PX, MOVER_PX)).astype(np.float32)
+    nb, x = cfg.semantic.max_boxes, MOVER_X
+    for t in range(n):
+        left, right = src(t)
+        y = MOVER_Y0 + MOVER_VY_PX * t
+        left[y:y + MOVER_PX, x:x + MOVER_PX] = obj
+        right[y:y + MOVER_PX, x - D_FAR:x - D_FAR + MOVER_PX] = obj
+        boxes, valid = np.zeros((nb, 4), np.float32), np.zeros(nb, bool)
+        boxes[0] = [x - 5, y - 5, x + MOVER_PX + 5, y + MOVER_PX + 5]
+        valid[0] = t % MOVER_MISS_EVERY != 0
+        yield t, left, right, boxes, valid, t / cfg.camera.fps
+
+
+def ground_truth(cfg, n: int) -> np.ndarray:
+    """(n, 4, 4) T_wc of the scene's camera: identity rotation, x from
+    ``io/synthetic.camera_x``."""
+    from stereo_semantic_vo_tpu_torch.io.synthetic import camera_x
+
+    gt = np.tile(np.eye(4), (n, 1, 1))
+    gt[:, 0, 3] = [camera_x(t, cfg.camera.bf, cfg.camera.fx) for t in range(n)]
+    return gt
+
+
+def pose_errors(poses: np.ndarray, gt: np.ndarray) -> tuple[float, float]:
+    """Max position (m) and rotation (rad) error of (n, 4, 4) T_wc against ``gt``."""
+    pos = float(np.linalg.norm(poses[:, :3, 3] - gt[: len(poses), :3, 3], axis=1).max())
+    return pos, max(rotation_angle(a[:3, :3].T @ b[:3, :3]) for a, b in zip(poses, gt))
+
+
+def run_cli(label: str, args: list[str], out: str, expected: dict, n: int, gt: np.ndarray) -> dict:
+    """``python -m stereo_semantic_vo_tpu_torch.run ARGS --out OUT`` in a
+    subprocess with the default device: exit 0, the card's name as the
+    report's device, the kernels' launches, n poses in the trajectory
+    file within the ground-truth bounds.  -> its report."""
+    from stereo_semantic_vo_tpu_torch.engine.trajectory import load_kitti_poses
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "stereo_semantic_vo_tpu_torch.run", *args, "--out", out],
+                          capture_output=True, text=True, timeout=CLI_TIMEOUT_S, cwd=REPO)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli {label}: exit code {proc.returncode}: {proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout[proc.stdout.index("{"):])
+    check(report["device"] == torch.cuda.get_device_name(0), f"cli {label}: ran on {report['device']}")
+    check(report["n_frames"] == n, f"cli {label}: {report['n_frames']} frames, expected {n}")
+    check(report["kernel_launches"] == expected, f"cli {label}: kernel launches {report['kernel_launches']}, "
+          f"expected {expected}")
+    poses = load_kitti_poses(os.path.join(out, "cameratrajectory_kitti.txt"))
+    pos, rot = pose_errors(poses, gt)
+    check(len(poses) == n and pos <= POS_BOUND_M and rot <= ROT_BOUND_RAD,
+          f"cli {label}: {len(poses)} poses, errors {pos} m / {rot} rad against ground truth")
+    ate = report.get("ate_rmse_m")
+    check(ate is None or ate <= ATE_BOUND_M, f"cli {label}: ATE {ate} m > {ATE_BOUND_M} m")
+    say(f"cli {label}: exit 0 in {wall:.1f} s on {report['device']}; {n} poses, max errors {pos:.5f} m / {rot:.6f} "
+        f"rad against ground truth, ATE {ate} m; median {report['median_s'] * 1e3:.2f} ms/frame; launches "
+        f"{report['kernel_launches']}; culled per frame {report['n_culled_dynamic']}")
+    return report
+
+
+def in_process(cfg, dev, seq: str, boxes_dir: str | None, out: str, n: int):
+    """The CLI's pipeline in this process: ``VOPipeline(cfg, device=dev)``
+    on ``kitti.iter_frames`` of the same directory."""
+    from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline
+    from stereo_semantic_vo_tpu_torch.io import kitti
+
+    frame_iter = kitti.iter_frames(kitti.load_sequence_paths(seq), boxes_dir, cfg.semantic.max_boxes, n,
+                                   image_hw=(cfg.camera.height, cfg.camera.width))
+    pipe = VOPipeline(cfg, device=dev, out_dir=out)
+    pipe.run(frame_iter)
+    return pipe
+
+
+def same_files(a: str, b: str) -> bool:
+    names = ("cameratrajectory_kitti.txt", "cameratrajectory_tum.txt")
+    return all(open(os.path.join(a, f), "rb").read() == open(os.path.join(b, f), "rb").read() for f in names)
+
+
+def drive_cli(cfg, dev, card: str) -> dict:
+    """The reference's shipped mode through ``run.py`` on the card, on a
+    KITTI directory of the mover scene (``mover_frames``) with its box
+    files and ground truth; then the same in this process.  -> each CLI
+    run's launch counts."""
+    from stereo_semantic_vo_tpu_torch.engine.tracker import FrameInput, track_step
+    from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline
+    from stereo_semantic_vo_tpu_torch.engine.trajectory import TrajectoryWriter
+    from stereo_semantic_vo_tpu_torch.models import zoo
+
+    n, n_s, win = N_CLI_FRAMES, N_CLI_SHORT_FRAMES, cfg.window.window_frames
+    off_cfg = dataclasses.replace(cfg, use_semantics=False)
+    gt = ground_truth(cfg, n)
+    sparse = lambda k: {"extract_patches": k, "keypoint_stereo_costs": k, "fused_best_match": 2 * (k - 1),  # noqa: E731
+                        "fast_scores": 0, "motion_hessian_gradient": 0, "sgm_aggregate": 0, "local_ba_blocks": 0,
+                        "hamming_distance_matrix_pallas": 0}
+    dense = {**sparse(n_s), "keypoint_stereo_costs": 0, "sgm_aggregate": 4 * n_s,
+             "local_ba_blocks": cfg.ba.local_iterations * (n_s - (win - 1))}
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        seq, boxes_dir, gt_path = (os.path.join(tmp, d) for d in ("seq", "boxes", "gt.txt"))
+        t0 = time.perf_counter()
+        write_kitti_sequence(seq, mover_frames(cfg, n), cfg.camera.fps, boxes_dir)
+        writer = TrajectoryWriter(gt_path)
+        for t, T in enumerate(gt):
+            writer.append(T, t / cfg.camera.fps)
+        writer.close()
+        say(f"cli: {n} mover frames written as a KITTI directory (8-bit PNGs, times.txt, "
+            f"{len(os.listdir(boxes_dir))} box files, ground truth) in {time.perf_counter() - t0:.2f} s")
+        common = ["--sequence", seq, "--seq-id", "00", "--gt", gt_path]
+        out = {k: os.path.join(tmp, k) for k in ("offline", "no_semantics", "dense", "online", "in_offline",
+                                                  "in_no_semantics")}
+        rep = run_cli("offline boxes", [*common, "--boxes-dir", boxes_dir], out["offline"], sparse(n), n, gt)
+        launches["cli_offline"] = rep["kernel_launches"]
+        rep_off = run_cli("--no-semantics", [*common, "--boxes-dir", boxes_dir, "--no-semantics"],
+                          out["no_semantics"], sparse(n), n, gt)
+        launches["cli_no_semantics"] = rep_off["kernel_launches"]
+        rep_d = run_cli("--dense-stereo --local-ba 1", [*common, "--boxes-dir", boxes_dir, "--dense-stereo",
+                        "--local-ba", "1", "--max-frames", str(n_s)], out["dense"], dense, n_s, gt)
+        launches["cli_dense_window_ba"] = rep_d["kernel_launches"]
+        yolo_cfg = os.path.join(tmp, "kitti_tiny_v2.cfg")
+        with open(yolo_cfg, "w") as f:
+            f.write(zoo.KITTI_TINY_V2_CFG)
+        rep_o = run_cli("--yolo-cfg", [*common, "--yolo-cfg", yolo_cfg, "--max-frames", str(n_s)], out["online"],
+                        sparse(n_s), n_s, gt)
+        launches["cli_online"] = rep_o["kernel_launches"]
+
+        # the same directory in this process: the trajectory files byte for byte
+        pipe = in_process(cfg, dev, seq, boxes_dir, out["in_offline"], n)
+        pipe_off = in_process(off_cfg, dev, seq, boxes_dir, out["in_no_semantics"], n)
+        for label, a, b in (("offline", "offline", "in_offline"), ("--no-semantics", "no_semantics", "in_no_semantics")):
+            check(same_files(out[a], out[b]), f"cli {label}: the trajectory files differ from the in-process run's")
+        culled = [int(o.n_culled_dynamic) for o in pipe.outputs]
+        culled_off = [int(o.n_culled_dynamic) for o in pipe_off.outputs]
+        check(culled == rep["n_culled_dynamic"] and culled_off == rep_off["n_culled_dynamic"],
+              "cli: culled counts differ from the in-process runs'")
+        after_miss = [c for t, c in enumerate(culled) if t % MOVER_MISS_EVERY == 1]
+        check(sum(after_miss) > 0, f"offline: nothing culled in the frames after a missed box: {culled}")
+        check(not any(culled_off), f"--no-semantics culled points: {culled_off}")
+        for label, p in (("offline", pipe), ("--no-semantics", pipe_off)):
+            pos, rot = pose_errors(np.stack([o.T_wc.cpu().numpy() for o in p.outputs]), gt)
+            check(pos <= POS_BOUND_M and rot <= ROT_BOUND_RAD, f"in-process {label}: errors {pos} m / {rot} rad")
+            say(f"in-process {label}: {n} frames of the PNGs, max errors {pos:.5f} m / {rot:.6f} rad against ground "
+                f"truth; trajectory files byte for byte the CLI's")
+        say(f"offline: culled per frame {culled} (missed box on frames t % {MOVER_MISS_EVERY} == 0; "
+            f"{sum(after_miss)} culled in the frames after a miss); --no-semantics culled per frame {culled_off}")
+
+        # the offline configuration on the host CPU: poses within the parity
+        # tolerance; the culled counts are printed, not compared (the
+        # fundamental fit's float32 rounding decides near-threshold verdicts)
+        cpu = in_process(cfg, torch.device("cpu"), seq, boxes_dir, os.path.join(tmp, "cpu"), N_CLI_CPU_FRAMES)
+        cpu_poses = np.stack([o.T_wc.numpy() for o in cpu.outputs])
+        card_poses = np.stack([o.T_wc.cpu().numpy() for o in pipe.outputs[:N_CLI_CPU_FRAMES]])
+        dpos = float(np.abs(cpu_poses[:, :3, 3] - card_poses[:, :3, 3]).max())
+        drot = max(rotation_angle(a[:3, :3].T @ b[:3, :3]) for a, b in zip(cpu_poses, card_poses))
+        check(dpos <= CPU_POS_TOL_M and drot <= CPU_ROT_TOL_RAD, f"offline: CPU vs card poses differ by {dpos} m / "
+              f"{drot} rad")
+        say(f"offline cpu rerun: {N_CLI_CPU_FRAMES} frames, max pose difference {dpos:.2e} m, {drot:.2e} rad; culled "
+            f"per frame {[int(o.n_culled_dynamic) for o in cpu.outputs]} on the CPU, {culled[:N_CLI_CPU_FRAMES]} on "
+            f"the card")
+
+    # no sync in an offline-box step on the mover frame after a miss
+    seq_frames = list(mover_frames(cfg, MOVER_MISS_EVERY + 2))
+    first = VOPipeline(cfg, device=dev, write_trajectory=False)
+    first.run(iter(seq_frames[:-1]), prefetch=False)
+    frame = FrameInput(*(torch.from_numpy(a).to(dev) for a in seq_frames[-1][1:5]))
+    no_sync(f"one offline-box track_step on mover frame {MOVER_MISS_EVERY + 1}, after a miss",
+            lambda: track_step(first.state, frame, cfg))
+    say(f"cli phase on {card}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the port on a GPU")
     from stereo_semantic_vo_tpu_torch.core.config import VOConfig
     from stereo_semantic_vo_tpu_torch.engine.tracker import FrameInput, track_step
     from stereo_semantic_vo_tpu_torch.engine.window_ba import refine_state
-    from stereo_semantic_vo_tpu_torch.kernels import build
-    from stereo_semantic_vo_tpu_torch.kernels.ba_hessian import local_ba_blocks, motion_hessian_gradient
-    from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_scores_levels
-    from stereo_semantic_vo_tpu_torch.kernels.hamming import hamming_distance_matrix_pallas
-    from stereo_semantic_vo_tpu_torch.kernels.matcher import fused_best_match
-    from stereo_semantic_vo_tpu_torch.kernels.patch_extract import extract_patches_levels
-    from stereo_semantic_vo_tpu_torch.kernels.sgm_scan import sgm_aggregate_batch
-    from stereo_semantic_vo_tpu_torch.kernels.sparse_stereo import keypoint_stereo_costs
+    from stereo_semantic_vo_tpu_torch.kernels import build, launch_counters
 
     card = card_line()
     print(card, flush=True)
@@ -1630,10 +1841,7 @@ def main() -> None:
 
     # each entry's launch counter: extract_patches, fast_scores and
     # sgm_aggregate count on the batched entries they call
-    kernels = {"extract_patches": extract_patches_levels, "keypoint_stereo_costs": keypoint_stereo_costs,
-               "fused_best_match": fused_best_match, "fast_scores": fast_scores_levels,
-               "motion_hessian_gradient": motion_hessian_gradient, "sgm_aggregate": sgm_aggregate_batch,
-               "local_ba_blocks": local_ba_blocks, "hamming_distance_matrix_pallas": hamming_distance_matrix_pallas}
+    kernels = launch_counters()
     off = {"fast_scores": 0, "motion_hessian_gradient": 0, "hamming_distance_matrix_pallas": 0}
     by_path = {}
 
@@ -1728,6 +1936,11 @@ def main() -> None:
 
     # 17. the native frame loader
     native_loader_state(cfg)
+
+    # 18. the reference's shipped mode through run.py on the card: offline
+    # boxes over a moving object, --no-semantics, --dense-stereo --local-ba 1
+    # and --yolo-cfg, each a subprocess counting its own launches
+    by_path.update(drive_cli(cfg, dev, card))
 
     for e in entries:
         e["launches"] = sum(counts[e["name"]] for counts in by_path.values())

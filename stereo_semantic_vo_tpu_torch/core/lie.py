@@ -129,7 +129,7 @@ def rotation_to_quaternion(R: torch.Tensor) -> torch.Tensor:
     tr = m00 + m11 + m22
 
     def root(x):
-        return torch.sqrt(torch.clamp_min(x, _EPS)) * 2.0
+        return _sqrt_rn(torch.clamp_min(x, _EPS)) * 2.0
 
     s = root(tr + 1.0)
     qw = torch.stack([(m21 - m12) / s, (m02 - m20) / s, (m10 - m01) / s, 0.25 * s])
@@ -142,7 +142,21 @@ def rotation_to_quaternion(R: torch.Tensor) -> torch.Tensor:
 
     branch = torch.where(tr > 0.0, 0, torch.argmax(torch.stack([m00, m11, m22])) + 1)
     q = torch.stack([qw, qx, qy, qz]).index_select(0, branch.reshape(1))[0]
-    return q / torch.linalg.vector_norm(q)
+    # the norm as the reference's XLA CPU build reduces it: a fused
+    # multiply-add a term, in order (a float32 square is exact in float64, so
+    # each step rounds once); vector_norm's order differs in the last bit
+    # for ~1 rotation in 8, and so does the TUM file's 7th decimal
+    acc = torch.zeros((), dtype=torch.float64, device=q.device)
+    for v in q.double():
+        acc = (acc + v * v).float().double()
+    return q / _sqrt_rn(acc.float())
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root rounded to nearest, as XLA's is: through float64,
+    whose root rounds to float32 correctly.  torch's float32 ``sqrt`` on the
+    CPU may round a near-tie the other way."""
+    return torch.sqrt(x.double()).float()
 
 
 def quaternion_to_rotation(q: torch.Tensor) -> torch.Tensor:

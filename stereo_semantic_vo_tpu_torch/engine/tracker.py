@@ -78,6 +78,20 @@ def _set_row(arr: torch.Tensor, row: int, src: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def cull_dynamic(F, uv_last, uv, m3, in_box, slot3, map_bad, cfg: VOConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 4's rule: a last-frame match inside a box whose point lies
+    farther than ``epipolar_threshold`` px from its epipolar line under the
+    background's ``F`` is dynamic, and poisons its map slot (an OR over
+    duplicate slots).  -> ((K,) dynamic, (M,) map_bad)."""
+    dd = epi_ops.epipolar_distance(F, uv_last, uv)
+    if cfg.use_semantics:
+        dynamic = m3 & in_box & (dd > cfg.matcher.epipolar_threshold)
+    else:
+        dynamic = torch.zeros_like(m3)
+    map_bad = map_bad.to(torch.uint8).scatter_reduce(0, slot3, dynamic.to(torch.uint8), "amax").to(torch.bool)
+    return dynamic, map_bad
+
+
 def _ransac_generator(cfg: VOConfig, frame: int, device) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed((cfg.pnp.seed << 32) + frame)
@@ -172,16 +186,8 @@ def track_step(state: VOState, frame: FrameInput, cfg: VOConfig) -> tuple[VOStat
     in_box_cur = epi_ops.in_box_mask(kp.uv, frame.boxes, frame.boxes_valid, mcfg.box_margin_match)
     background = m3 & ~in_box_cur
     F = epi_ops.fit_fundamental(matched_uv_last, kp.uv, background.to(torch.float32))
-    dd = epi_ops.epipolar_distance(F, matched_uv_last, kp.uv)
-    if cfg.use_semantics:
-        dynamic = m3 & in_box_cur & (dd > mcfg.epipolar_threshold)
-    else:
-        dynamic = torch.zeros_like(m3)
+    dynamic, map_bad = cull_dynamic(F, matched_uv_last, kp.uv, m3, in_box_cur, slot3, state.map_bad, cfg)
     n_culled = torch.sum(dynamic)
-    # poison the map point (an OR over duplicate slots) and drop the match
-    map_bad = state.map_bad.to(torch.uint8).scatter_reduce(
-        0, slot3, dynamic.to(torch.uint8), "amax"
-    ).to(torch.bool)
     m3 = m3 & ~dynamic
 
     # ---- 5. local-map matching (gate < 30, ratio > 2) over regions older

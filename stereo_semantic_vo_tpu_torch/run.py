@@ -19,6 +19,11 @@ detects online with a darknet cfg (models/yolo.YoloDetector) on the same
 device, at ``cfg.semantic``'s threshold, NMS IoU and box count, with the
 weights of ``--yolo-weights`` or, without them, random weights; the
 detections replace the offline boxes.
+
+The report printed last (JSON) holds the reference's keys (``n_frames``,
+the frame times, ``ate_rmse_m`` with ``--gt``) and the device, the points
+culled as dynamic at each frame and each CUDA kernel's launches in the run
+(all 0 on the CPU, which runs the kernels' plain versions).
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ def main() -> None:
     from stereo_semantic_vo_tpu_torch.core.config import VOConfig
     from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline
     from stereo_semantic_vo_tpu_torch.io import kitti
+    from stereo_semantic_vo_tpu_torch.kernels import launch_counters
 
     cfg = VOConfig.kitti(args.seq_id)
     if args.no_semantics:
@@ -89,6 +95,8 @@ def main() -> None:
     summary = pipe.run(frames)
     report = {k: v for k, v in summary.items() if k != "positions"}
     report["device"] = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
+    report["n_culled_dynamic"] = [int(o.n_culled_dynamic) for o in pipe.outputs]
+    report["kernel_launches"] = {name: entry.launches for name, entry in launch_counters().items()}
 
     if args.gt:
         from stereo_semantic_vo_tpu_torch.engine.trajectory import load_kitti_poses

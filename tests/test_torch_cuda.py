@@ -29,7 +29,9 @@ card against the CPU: loss rtol 1e-4, every param, statistic and momentum
 buffer atol 1e-3 x max|CPU| (cuDNN's forward and backward convolutions sum
 in another order); a detector from the exported weights equal to one from
 the folded params; a pipeline resumed from a checkpoint equal, bit for bit,
-to the uninterrupted run."""
+to the uninterrupted run; on chip_smoke.py's mover scene, a step of
+``run.py --no-semantics``'s configuration on the card against the CPU
+within 1e-3 m and 1e-3 rad, and nothing culled without semantics."""
 
 import dataclasses
 
@@ -1210,3 +1212,42 @@ def test_checkpoint_resume_on_the_card_is_bit_equal(tmp_path):
         assert torch.equal(a.T_wc, b.T_wc) and torch.equal(a.obs_uid, b.obs_uid)
     for name in whole.state._fields[1:]:
         assert torch.equal(getattr(whole.state, name), getattr(second.state, name)), name
+
+
+def _mover_steps(cfg, dev, n):
+    """``init_step`` and ``track_step`` on ``n`` frames of chip_smoke.py's
+    mover scene (1241x376, its box missed on frames t % 5 == 0)."""
+    from chip_smoke import mover_frames
+
+    state, outs = init_state(cfg, dev), []
+    for i, left, right, boxes, valid, _ in mover_frames(cfg, n):
+        frame = TT.FrameInput(*(t(a, dev) for a in (left, right, boxes, valid)))
+        state, out = (TT.init_step if i == 0 else TT.track_step)(state, frame, cfg)
+        outs.append(out)
+    return outs
+
+
+def test_mover_step_without_semantics_card_matches_cpu():
+    """``run.py --no-semantics``'s configuration on the mover scene: the step
+    after the missed frame on the card against the CPU, within 1e-3 m and
+    1e-3 rad, nothing culled on either."""
+    dev = cuda_device()
+    cfg = dataclasses.replace(VOConfig.kitti(), use_semantics=False)
+    card, cpu = _mover_steps(cfg, dev, 2)[-1], _mover_steps(cfg, torch.device("cpu"), 2)[-1]
+    from chip_smoke import rotation_angle
+
+    a, b = card.T_wc.cpu().numpy().astype(np.float64), cpu.T_wc.numpy().astype(np.float64)
+    assert np.linalg.norm(a[:3, 3] - b[:3, 3]) <= 1e-3
+    assert rotation_angle(a[:3, :3].T @ b[:3, :3]) <= 1e-3
+    assert bool(card.pnp_ok) and int(card.n_culled_dynamic) == 0 == int(cpu.n_culled_dynamic)
+
+
+def test_no_semantics_culls_nothing_on_the_card():
+    """Seven mover frames on the card: with semantics the epipolar test
+    culls after the missed frames; without, nothing on any frame."""
+    dev = cuda_device()
+    cfg = VOConfig.kitti()
+    on = [int(o.n_culled_dynamic) for o in _mover_steps(cfg, dev, 7)]
+    off = [int(o.n_culled_dynamic) for o in _mover_steps(dataclasses.replace(cfg, use_semantics=False), dev, 7)]
+    assert sum(on) > 0, on
+    assert off == [0] * 7
