@@ -88,7 +88,17 @@ Phases, each of which raises (exit code != 0) when it fails:
    the frames after a missed box and ``--no-semantics`` none; 8 frames of
    the offline configuration on the host CPU agree in pose (their culled
    counts are printed beside the card's); an offline-box ``track_step``
-   after a miss does not sync.
+   after a miss does not sync;
+19. CUDA graphs: every path above (its ``VOPipeline`` replays captured
+   graphs of ``init_step`` / ``track_step``, ``refine_state`` and, online,
+   ``detect`` on the card, as in phases 3-18) and the same pipeline with
+   ``capture=False`` run in turns, eager, graph, eager, graph: sparse, knob
+   and steered over 30 frames, dense with window BA every frame and online
+   over 8.  Each graph run equals the eager runs bit for bit (every output
+   of every frame and the final ``VOState``) with the same launch counts;
+   each turn's median and p90 host ms/frame, the graphs' capture ms and
+   pool MiB, three profiled frames of each kind (device busy ms, idle
+   share, kernels a frame) and a replaying frame under sync debug mode.
 
 Each kernel's line entry carries its time and its plain version's (CUDA
 events, wrapper included; for the two BA builds beside ``step_ms``, a
@@ -171,6 +181,8 @@ N_RESUME_AT, N_RESUME_FRAMES = 10, 20  # checkpoint after frame 9, resume on fra
 N_CLI_FRAMES = 30        # run.py with offline boxes and with --no-semantics, on the mover scene
 N_CLI_SHORT_FRAMES = 8   # run.py --dense-stereo --local-ba 1 and --yolo-cfg
 N_CLI_CPU_FRAMES = 8     # the offline configuration again on the host CPU
+N_GRAPH_FRAMES = 30      # phase 19: eager and graph runs of the sparse, knob and steered paths
+N_GRAPH_SHORT_FRAMES = 8  # ... and of the dense (window BA every frame) and online paths
 CLI_TIMEOUT_S = 300
 ATE_BOUND_M = 0.1        # run.py's ate_rmse_m against the ground-truth file
 MOVER_PX = 120           # the moving object's side
@@ -848,10 +860,14 @@ def rotation_angle(R: np.ndarray) -> float:
     return float(np.arctan2(np.linalg.norm(vee) / 2.0, (np.trace(R) - 1.0) / 2.0))
 
 
-def run_slice(cfg, dev, n: int, local_ba_every: int = 0, detector=None, frame_source=None, ba_mesh=None):
+def run_slice(cfg, dev, n: int, local_ba_every: int = 0, detector=None, frame_source=None, ba_mesh=None,
+              capture=None):
+    """``VOPipeline(cfg, device=dev, ...)`` over ``n`` frames of the scene
+    (on a card it replays CUDA graphs unless ``capture=False``)."""
     from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline
 
-    pipe = VOPipeline(cfg, device=dev, local_ba_every=local_ba_every, detector=detector, ba_mesh=ba_mesh)
+    pipe = VOPipeline(cfg, device=dev, local_ba_every=local_ba_every, detector=detector, ba_mesh=ba_mesh,
+                      capture=capture)
     t0 = time.perf_counter()
     pipe.run(frames(cfg, n) if frame_source is None else frame_source)
     if dev.type == "cuda":
@@ -1065,9 +1081,15 @@ def drive_online(cfg, dev, det, kernels: dict, expected: dict, slice_steady, car
     from stereo_semantic_vo_tpu_torch.models import zoo
 
     n_o = N_ONLINE_FRAMES
+    pipe, wall, poses, launches = drive_path("online", cfg, dev, n_o, 0, kernels, expected, detector=det)
+    # the detections of each frame, from the same path dispatched eagerly
+    # (under graphs the detector's Python runs only at capture): bit for bit
+    # the graph run
     rec = Recorder(det)
-    pipe, wall, poses, launches = drive_path("online", cfg, dev, n_o, 0, kernels, expected, detector=rec)
+    eager, _ = run_slice(cfg, dev, n_o, detector=rec, capture=False)
     check(len(rec.seen) == n_o, f"online: {len(rec.seen)} detections for {n_o} frames")
+    check(np.array_equal(np.stack([o.T_wc.cpu().numpy() for o in eager.outputs]), poses),
+          "online: the eager run's poses differ from the graph run's")
     n_valid = [int(d.valid.sum()) for d in rec.seen]
     culled = [int(o.n_culled_dynamic) for o in pipe.outputs]
     say(f"online: valid boxes detected per frame {n_valid}; frame t tracks with frame t-1's; culled points per "
@@ -1347,7 +1369,7 @@ def drive_sharded(cfg, dev, kernels: dict, expected: dict, card: str) -> dict:
         drot = max(rotation_angle(a[:3, :3].T @ b[:3, :3]) for a, b in zip(poses_m, poses_r))
         check(dpos <= CPU_POS_TOL_M and drot <= CPU_ROT_TOL_RAD,
               f"pipeline with a mesh vs without: poses differ by {dpos} m / {drot} rad")
-        no_sync("one sharded refine", lambda: pipe.window_ba.refine(pipe.state))
+        no_sync("one sharded refine", lambda: pipe.window_ba.refine(pipe.state, pipe._n_processed))
         say(f"VOPipeline(ba_mesh=..., local_ba_every=1) vs no mesh: {n_f} frames, {n_f - 3} refines, max pose "
             f"difference {dpos:.3g} m, {drot:.3g} rad; card {card}")
     finally:
@@ -1551,8 +1573,8 @@ def resume_from_checkpoint(cfg, dev, slice_poses: np.ndarray) -> None:
         t0 = time.perf_counter()
         second.resume(load_state(path, second.state))
         load_ms = (time.perf_counter() - t0) * 1e3
-    check(second.state.frame_idx == N_RESUME_AT - 1 and second.state.T_cw.device == dev,
-          f"resumed state at frame {second.state.frame_idx} on {second.state.T_cw.device}")
+    check(int(second.state.frame_idx) == N_RESUME_AT - 1 and second.state.T_cw.device == dev,
+          f"resumed state at frame {int(second.state.frame_idx)} on {second.state.T_cw.device}")
     second.run(iter(seq[N_RESUME_AT:N_RESUME_FRAMES]), prefetch=False)
     poses = np.stack([o.T_wc.cpu().numpy() for o in first.outputs + second.outputs])
     check(poses.shape[0] == N_RESUME_FRAMES and np.array_equal(poses, slice_poses[:N_RESUME_FRAMES]),
@@ -1804,6 +1826,86 @@ def drive_cli(cfg, dev, card: str) -> dict:
     return launches
 
 
+def same_run(a, b) -> bool:
+    """Every output of every frame and the final ``VOState`` of two
+    pipelines, bit for bit."""
+    return (len(a.outputs) == len(b.outputs)
+            and all(torch.equal(x, y) for oa, ob in zip(a.outputs, b.outputs) for x, y in zip(oa, ob))
+            and all(torch.equal(x, y) for x, y in zip(a.state, b.state)))
+
+
+def graph_stats(pipe) -> tuple[float, float, int]:
+    """-> (capture ms, pool MiB, replays) of a pipeline's CUDA graphs."""
+    graphs = [g for g in pipe.steps.graphs.values() if g.graph is not None]
+    if pipe._det_graph is not None and pipe._det_graph.graph is not None:
+        graphs.append(pipe._det_graph)
+    return (sum(g.capture_ms for g in graphs), sum(g.pool_bytes for g in graphs) / 2**20,
+            sum(g.replays for g in graphs))
+
+
+def drive_graphs(paths, dev, kernels: dict, card: str) -> dict:
+    """Phase 19: each path's frames eager and replaying CUDA graphs, in
+    turns (eager, graph, eager, graph) in this process.  Each graph run
+    equals each eager run bit for bit (every output of every frame, the
+    final state) and launches each hand kernel as often; host ms/frame of
+    each turn; capture ms, the graph pool, the device's idle share and
+    kernels a frame of three profiled frames under each; no sync in a
+    frame that replays.  -> the graph runs' launch counts by path."""
+    from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline
+
+    by_path = {}
+    for label, cfg, n, every, det, steady_from in paths:
+        turns = []
+        for capture in (False, True, False, True):
+            for k in kernels.values():
+                k.launches = 0
+            pipe = VOPipeline(cfg, device=dev, local_ba_every=every, detector=det, capture=capture,
+                              write_trajectory=False)
+            check(pipe.steps.capture == capture, f"graphs {label}: capture {pipe.steps.capture}")
+            pipe.run(frames(cfg, n))
+            torch.cuda.synchronize()
+            launches = {name: k.launches for name, k in kernels.items()}
+            steady = np.array(pipe.frame_times[steady_from:]) * 1e3
+            turns.append((capture, pipe, launches, float(np.median(steady)), float(np.percentile(steady, 90))))
+        eager = [t for t in turns if not t[0]]
+        graph = [t for t in turns if t[0]]
+        check(same_run(eager[0][1], eager[1][1]), f"graphs {label}: two eager runs differ")
+        for g in graph:
+            check(same_run(eager[0][1], g[1]), f"graphs {label}: a graph run differs from the eager run")
+            check(g[2] == eager[0][2], f"graphs {label}: launches {g[2]} under graphs, {eager[0][2]} eager")
+        cap_ms, pool_mib, replays = graph_stats(graph[-1][1])
+        check(replays > 0, f"graphs {label}: nothing replayed")
+        # three more frames of each kind under the profiler, then one
+        # replaying frame with its deferred readback set aside
+        extra = [(f[1], f[2], None, None, f[5]) if det is not None else f[1:] for f in list(frames(cfg, n + 4))[n:]]
+        prof = {}
+        for kind, t in (("eager", eager[-1]), ("graph", graph[-1])):
+            pipe = t[1]
+            busy, wall_p, n_k = device_busy(lambda: [pipe.process_frame(*f) for f in extra[:3]])
+            prof[kind] = (busy / 3, wall_p / 3, n_k / 3)
+        pipe = graph[-1][1]
+        held = []
+        finalize, pipe._finalize = pipe._finalize, lambda out, ts: held.append((out, ts))
+        no_sync(f"graphs {label}: one process_frame replaying the step's graphs", lambda: pipe.process_frame(*extra[3]))
+        pipe._finalize = finalize
+        for item in held:
+            finalize(*item)
+        launched = {k: v for k, v in graph[0][2].items() if v}
+        say(f"graphs {label}: {n} frames, each graph run bit for bit the eager run (outputs of every frame, "
+            f"final state) with the same launches ({launched}); host ms/frame median / p90 over frames "
+            f"{steady_from}-{n - 1} in turns: " + ", ".join(
+                f"{'graph' if c else 'eager'} {med:.3f} / {p90:.3f}" for c, _, _, med, p90 in turns))
+        say(f"graphs {label}: capture {cap_ms:.1f} ms, graph pool {pool_mib:.1f} MiB, {replays} replays; three "
+            f"profiled frames: eager device busy {prof['eager'][0]:.3f} of {prof['eager'][1]:.3f} ms a frame "
+            f"(idle {100 * (1 - prof['eager'][0] / prof['eager'][1]):.1f}%, {prof['eager'][2]:.0f} kernels), graph "
+            f"{prof['graph'][0]:.3f} of {prof['graph'][1]:.3f} ms (idle "
+            f"{100 * (1 - prof['graph'][0] / prof['graph'][1]):.1f}%, {prof['graph'][2]:.0f} kernels); card {card}")
+        by_path[f"graphs_{label}"] = {k: v + w for (k, v), w in zip(graph[0][2].items(), graph[1][2].values())}
+        del turns, eager, graph, pipe
+        torch.cuda.empty_cache()
+    return by_path
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the port on a GPU")
@@ -1941,6 +2043,13 @@ def main() -> None:
     # boxes over a moving object, --no-semantics, --dense-stereo --local-ba 1
     # and --yolo-cfg, each a subprocess counting its own launches
     by_path.update(drive_cli(cfg, dev, card))
+
+    # 19. every path eager and under CUDA graphs, in turns
+    by_path.update(drive_graphs([
+        ("sparse", cfg, N_GRAPH_FRAMES, 0, None, 5), ("knob", knob_cfg, N_GRAPH_FRAMES, 0, None, 5),
+        ("steered", steer_cfg, N_GRAPH_FRAMES, 0, None, 5),
+        ("dense", dense_cfg, N_GRAPH_SHORT_FRAMES, 1, None, cfg.window.window_frames),
+        ("online", cfg, N_GRAPH_SHORT_FRAMES, 0, det, 2)], dev, kernels, card))
 
     for e in entries:
         e["launches"] = sum(counts[e["name"]] for counts in by_path.values())

@@ -1,0 +1,187 @@
+"""CUDA graphs of the tracking step: the port's counterpart of the
+reference's ``jax.jit`` programs ``init_step`` and ``track_step``
+(engine/tracker.py), ``refine_state`` (engine/window_ba.py) and its jitted
+``detect`` (models/yolo.py, captured by engine/pipeline.py).
+
+A :class:`Graph` is one function of fixed buffers.  Its first call runs the
+function eagerly on a side stream and returns that result: the warm-up,
+which builds the kernel library and uploads the cached constants, and
+creates the libraries' handles and workspaces, none of which a capture may
+do.  It then captures the function into a CUDA graph in a memory pool that
+the graphs of one pipeline share; every later call replays the graph and
+returns the captured outputs, which the next replay overwrites.  Graphs
+that share a pool must run one after another, never at once.  A capture
+or a replay that fails raises: nothing falls back to eager dispatch on a
+card.
+
+:class:`StepGraphs` holds a pipeline's static ``FrameInput`` and
+``VOState`` buffers and one graph for each of ``init_step``,
+``track_step`` and ``refine_state``; each copies the new state back into
+the static state inside the graph, so the step's frame counter, ring
+offsets and RANSAC draws (all on the device) advance on every replay.  With
+``capture=False``, which the CPU requires, it calls the eager functions on
+its state instead.
+
+The kernels' launch counters (``kernels.launch_counters``) count in the
+wrappers, which run only during a capture: a graph records each counter's
+rise during its capture, puts the counter back, and adds that rise on every
+replay, so the counts stay those of the kernels that ran.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import torch
+
+from stereo_semantic_vo_tpu_torch.core import lie
+from stereo_semantic_vo_tpu_torch.core.config import VOConfig
+from stereo_semantic_vo_tpu_torch.engine.state import TrackOutputs, VOState
+from stereo_semantic_vo_tpu_torch.engine.tracker import FrameInput, init_step, track_step
+from stereo_semantic_vo_tpu_torch.engine.window_ba import refine_state
+from stereo_semantic_vo_tpu_torch.kernels import launch_counters
+
+
+def _tensors(tree) -> list[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [x for item in tree for x in _tensors(item)]
+    return []
+
+
+def _copy_state(dst: VOState, src: VOState) -> None:
+    """Copy every field of ``src`` into ``dst``'s tensors (a field that is
+    the same tensor in both is left alone)."""
+    for a, b in zip(dst, src):
+        if a is not b:
+            a.copy_(b)
+
+
+class Graph:
+    """``fn()``, a function of fixed buffers on ``device``, run eagerly once
+    and then replayed from a CUDA graph captured in ``pool``."""
+
+    def __init__(self, fn: Callable, pool, device: torch.device):
+        self.fn, self.pool, self.device = fn, pool, device
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.outputs = None
+        self.rise: list[tuple[Callable, int]] = []  # (counted kernel entry, launches a replay)
+        self.capture_ms = 0.0
+        self.pool_bytes = 0  # the device memory the capture reserved
+        self.replays = 0
+
+    def __call__(self):
+        with torch.cuda.device(self.device):
+            if self.graph is None:
+                out = self._warm_up()
+                self._capture()
+                return out
+            self.graph.replay()
+        self.replays += 1
+        for entry, n in self.rise:
+            entry.launches += n
+        return self.outputs
+
+    def _warm_up(self):
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = self.fn()
+        cur.wait_stream(side)
+        for x in _tensors(out):
+            x.record_stream(cur)
+        return out
+
+    def _capture(self) -> None:
+        entries = list(launch_counters().values())
+        before = [e.launches for e in entries]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                self.outputs = self.fn()
+        finally:  # nothing ran during the capture
+            rise = [(e, e.launches - b) for e, b in zip(entries, before) if e.launches != b]
+            for e, b in zip(entries, before):
+                e.launches = b
+        torch.cuda.synchronize()
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self.rise, self.graph = rise, graph
+
+
+class StepGraphs:
+    """A pipeline's step functions on static buffers: ``init()``,
+    ``track()`` and ``refine()`` run one step on ``self.frame`` and
+    ``self.state``.  With ``capture`` each is a :class:`Graph` (the state
+    is copied into buffers of its own); without, the eager function."""
+
+    def __init__(self, cfg: VOConfig, state: VOState, capture: bool):
+        self.cfg, self.capture = cfg, capture
+        self.device = state.T_cw.device
+        self.frame: FrameInput | None = None
+        if not capture:
+            self.state = state
+            return
+        if self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, got {self.device}")
+        self.state = VOState(*(x.clone() for x in state))
+        with torch.cuda.device(self.device):
+            self.pool = torch.cuda.graph_pool_handle()
+        self.graphs = {name: Graph(fn, self.pool, self.device) for name, fn in (
+            ("init_step", lambda: self._step(init_step)), ("track_step", lambda: self._step(track_step)),
+            ("refine_state", self._refine))}
+
+    def frame_buffers(self, shape: tuple[int, int], n_boxes: int) -> FrameInput:
+        """The static frame buffers, made on the first call; a frame of
+        another shape raises (a graph replays fixed shapes)."""
+        if self.frame is None:
+            f32 = dict(dtype=torch.float32, device=self.device)
+            self.frame = FrameInput(torch.zeros(shape, **f32), torch.zeros(shape, **f32),
+                                    torch.zeros((n_boxes, 4), **f32),
+                                    torch.zeros((n_boxes,), dtype=torch.bool, device=self.device))
+        elif tuple(self.frame.left.shape) != tuple(shape) or self.frame.boxes.shape[0] != n_boxes:
+            raise ValueError(f"frame {tuple(shape)} with {n_boxes} boxes; the step graphs hold "
+                             f"{tuple(self.frame.left.shape)} with {self.frame.boxes.shape[0]}")
+        return self.frame
+
+    def load_state(self, state: VOState) -> None:
+        """Continue from ``state``: copied into the static state."""
+        if self.capture:
+            _copy_state(self.state, state)
+        else:
+            self.state = state
+
+    def _step(self, fn) -> TrackOutputs:
+        new, out = fn(self.state, self.frame, self.cfg)
+        _copy_state(self.state, new)
+        return out
+
+    def _refine(self) -> tuple[torch.Tensor, torch.Tensor]:
+        _copy_state(self.state, refine_state(self.state, self.cfg))
+        return self.state.T_cw, lie.T_inv(self.state.T_cw)
+
+    def init(self) -> TrackOutputs:
+        if self.capture:
+            return self.graphs["init_step"]()
+        self.state, out = init_step(self.state, self.frame, self.cfg)
+        return out
+
+    def track(self) -> TrackOutputs:
+        if self.capture:
+            return self.graphs["track_step"]()
+        self.state, out = track_step(self.state, self.frame, self.cfg)
+        return out
+
+    def refine(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The window refine -> the refined (T_cw, T_wc)."""
+        if self.capture:
+            return self.graphs["refine_state"]()
+        self.state = refine_state(self.state, self.cfg)
+        return self.state.T_cw, lie.T_inv(self.state.T_cw)

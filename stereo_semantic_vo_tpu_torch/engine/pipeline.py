@@ -12,13 +12,25 @@ are copied to the device from pinned memory without blocking; frame t-1's
 outputs are read back after frame t is dispatched, so the host never
 waits on the step it just queued.
 
+On a card each frame replays CUDA graphs (engine/graphs.py), the port's
+counterpart of the reference's jitted step: ``init_step`` or
+``track_step`` (chosen on the host, as the reference's pipeline does), the
+window refine on refine frames and, online, ``detect``.  The first call of
+each runs eagerly and captures it.  Frames are uploaded straight into the
+graphs' static buffers, and the outputs that ``_finalize`` and ``outputs``
+keep are copied on the device before the next replay overwrites them.
+``capture=False`` switches the graphs off (the counterpart of
+``jax.disable_jit``, for debugging and for reading eager against graph);
+the CPU runs the eager functions.
+
 With a ``detector`` (models/yolo.YoloDetector on the pipeline's device) and
 ``async_detect=True``, frame t tracks with frame t-1's detections and frame
 0 with none: the one-frame staleness of the reference's detector thread
 (src/semantic.cc).  On a card, detection of frame t is queued on a side CUDA
 stream as soon as left(t) is uploaded, ahead of ``track_step(t)``, whose
 kernels never wait for it; frame t+1's step makes the main stream wait on
-the event detection recorded.  The host waits on neither.  On the CPU the same calls run in order.  With
+the event detection recorded before it reads the boxes (and, under graphs,
+before the next frame's upload overwrites the image detection reads).  The host waits on neither.  On the CPU the same calls run in order.  With
 ``async_detect=False`` each frame is detected, read back and tracked with
 its own boxes, as the reference does.
 """
@@ -36,9 +48,10 @@ import torch
 
 from stereo_semantic_vo_tpu_torch.core import lie
 from stereo_semantic_vo_tpu_torch.core.config import VOConfig
-from stereo_semantic_vo_tpu_torch.engine.state import init_state
-from stereo_semantic_vo_tpu_torch.engine.tracker import FrameInput, init_step, track_step
-from stereo_semantic_vo_tpu_torch.engine.window_ba import WindowBA, refine_state
+from stereo_semantic_vo_tpu_torch.engine.graphs import Graph, StepGraphs
+from stereo_semantic_vo_tpu_torch.engine.state import TrackOutputs, init_state
+from stereo_semantic_vo_tpu_torch.engine.tracker import FrameInput
+from stereo_semantic_vo_tpu_torch.engine.window_ba import WindowBA
 from stereo_semantic_vo_tpu_torch.engine.trajectory import TrajectoryWriter
 
 
@@ -74,19 +87,22 @@ class VOPipeline:
         ba_mesh=None,
         reinit_after_lost: int = 3,
         async_detect: bool = True,
+        capture: bool | None = None,
     ):
         self.cfg = cfg
         self.local_ba_every = local_ba_every
         self.device = torch.device(device)
-        self.state = init_state(cfg, self.device)
+        if capture is None:
+            capture = self.device.type == "cuda"
+        self.steps = StepGraphs(cfg, init_state(cfg, self.device), capture)
         self.window_ba = None
         if local_ba_every > 0 and ba_mesh is not None:
-            if ba_mesh.device != self.state.T_cw.device:
-                raise ValueError(f"the mesh's rank runs on {ba_mesh.device}, the pipeline on {self.state.T_cw.device}")
+            if ba_mesh.device != self.steps.device:
+                raise ValueError(f"the mesh's rank runs on {ba_mesh.device}, the pipeline on {self.steps.device}")
             self.window_ba = WindowBA(cfg, mesh=ba_mesh)
         self.detector = detector
-        if detector is not None and detector.device != self.state.T_cw.device:
-            raise ValueError(f"the detector runs on {detector.device}, the pipeline on {self.state.T_cw.device}")
+        if detector is not None and detector.device != self.steps.device:
+            raise ValueError(f"the detector runs on {detector.device}, the pipeline on {self.steps.device}")
         self.async_detect = async_detect
         # frame t's detections (max_boxes, 4) / (max_boxes,), used by frame t+1
         self._det_pending: tuple[torch.Tensor, torch.Tensor] | None = None
@@ -95,6 +111,13 @@ class VOPipeline:
             torch.cuda.Stream(self.device)
             if detector is not None and async_detect and self.device.type == "cuda"
             else None
+        )
+        # detect(left / 255) of the static left image, cut or padded to
+        # max_boxes; a pool of its own, since on the side stream it runs
+        # beside the step's graphs
+        self._det_graph = (
+            Graph(lambda: self._detections(self.steps.frame.left), torch.cuda.graph_pool_handle(), self.device)
+            if detector is not None and capture else None
         )
         # tracking-lost recovery: reseed the map after N consecutive PnP
         # failures (0 disables)
@@ -112,18 +135,31 @@ class VOPipeline:
         self._pending: tuple[Any, float] | None = None
         self._n_processed = 0
 
+    @property
+    def state(self):
+        """The tracker's current ``VOState`` (under graphs, the static
+        state that the next replay updates in place)."""
+        return self.steps.state
+
     def resume(self, state) -> None:
         """Continue a sequence from ``state`` (utils/checkpoint.load_state
         on this pipeline's device): the next frame is ``state.frame_idx +
-        1`` and tracks against its map."""
-        self.state = state
-        self._n_processed = state.frame_idx + 1
+        1`` and tracks against its map.  Reads the frame counter once."""
+        self.steps.load_state(state)
+        self._n_processed = int(state.frame_idx) + 1
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+    def _to_device(self, a: np.ndarray, out: torch.Tensor | None = None) -> torch.Tensor:
+        """Host array -> this pipeline's device, from pinned memory without
+        blocking on a card; into ``out`` (a static buffer) where given."""
         t = torch.from_numpy(np.array(a))  # a writable copy: callers may pass read-only views
-        if self.device.type == "cuda":
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        if out is None:
             return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        if t.shape != out.shape or t.dtype != out.dtype:
+            raise ValueError(f"a {t.dtype} array of shape {tuple(t.shape)} for a static buffer of {out.dtype} "
+                             f"{tuple(out.shape)}")
+        return out.copy_(t.pin_memory(), non_blocking=True)
 
     def _fit_boxes(self, boxes: torch.Tensor, valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Cut or zero-pad detections to ``cfg.semantic.max_boxes``."""
@@ -137,37 +173,51 @@ class VOPipeline:
         det = self.detector.detect(left / 255.0)
         return self._fit_boxes(det.boxes, det.valid)
 
+    def _detect_call(self, left: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """This frame's detections: a replay of the detect graph (which
+        reads the static left image) or the eager call."""
+        if self._det_graph is not None:
+            return self._det_graph()
+        return self._detections(left)
+
     def _detect(self, left: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
         """Detect on this frame and read the boxes back, as the reference's
         synchronous mode does."""
-        return tuple(x.cpu().numpy() for x in self._detections(left))
+        return tuple(x.cpu().numpy() for x in self._detect_call(left))
 
     def _detect_async(self, left: torch.Tensor) -> None:
         """Queue detection of this frame; the next frame consumes it."""
         stream = self._det_stream
         if stream is None:
-            self._det_pending = self._detections(left)
+            self._det_pending = self._detect_call(left)
             return
         stream.wait_stream(torch.cuda.current_stream(self.device))  # left's upload
         with torch.cuda.stream(stream):
-            self._det_pending = self._detections(left)
+            self._det_pending = self._detect_call(left)
             self._det_done = torch.cuda.Event()
             self._det_done.record(stream)
         left.record_stream(stream)
 
-    def _stale_boxes(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def _stale_boxes(self, frame: FrameInput | None) -> tuple[torch.Tensor, torch.Tensor]:
         """The previous frame's detections (none on the first frame), ready
-        for the main stream once it has waited on their event."""
+        for the main stream once it has waited on their event; copied into
+        the static ``frame`` buffers under graphs, since the next detect
+        replay overwrites its outputs."""
+        nb = self.cfg.semantic.max_boxes
         if self._det_pending is None:
-            nb = self.cfg.semantic.max_boxes
+            if frame is not None:
+                return frame.boxes.zero_(), frame.boxes_valid.zero_()
             return (torch.zeros((nb, 4), dtype=torch.float32, device=self.device),
                     torch.zeros((nb,), dtype=torch.bool, device=self.device))
         boxes, valid = self._det_pending
         if self._det_done is not None:
             main = torch.cuda.current_stream(self.device)
             main.wait_event(self._det_done)
-            boxes.record_stream(main)
-            valid.record_stream(main)
+            if frame is None:
+                boxes.record_stream(main)
+                valid.record_stream(main)
+        if frame is not None:
+            return frame.boxes.copy_(boxes), frame.boxes_valid.copy_(valid)
         return boxes, valid
 
     def process_frame(
@@ -181,34 +231,39 @@ class VOPipeline:
         """Track one stereo pair.  ``boxes`` None means: detect with the
         pipeline's detector, or no boxes without one."""
         t0 = time.perf_counter()
-        left_dev = self._to_device(np.asarray(left, np.float32))
-        if boxes is None and self.detector is not None and self.async_detect:
-            boxes_dev, valid_dev = self._stale_boxes()
+        steps = self.steps
+        left = np.asarray(left, np.float32)
+        nb = self.cfg.semantic.max_boxes if boxes is None else len(boxes)
+        static = steps.frame_buffers(left.shape, nb) if steps.capture else None
+        dst = static._asdict() if static is not None else {}  # the uploads' static buffers
+        online = boxes is None and self.detector is not None and self.async_detect
+        if online:
+            # before the upload: under graphs the detection of the frame
+            # before reads the static left image
+            boxes_dev, valid_dev = self._stale_boxes(static)
+        left_dev = self._to_device(left, dst.get("left"))
+        if online:
             self._detect_async(left_dev)
         else:
             if boxes is None and self.detector is not None:
                 boxes, boxes_valid = self._detect(left_dev)
             elif boxes is None:
-                nb = self.cfg.semantic.max_boxes
                 boxes, boxes_valid = np.zeros((nb, 4), np.float32), np.zeros(nb, bool)
-            boxes_dev = self._to_device(np.asarray(boxes, np.float32))
-            valid_dev = self._to_device(np.asarray(boxes_valid, bool))
-        frame = FrameInput(
-            left=left_dev,
-            right=self._to_device(np.asarray(right, np.float32)),
-            boxes=boxes_dev,
-            boxes_valid=valid_dev,
-        )
+            boxes_dev = self._to_device(np.asarray(boxes, np.float32), dst.get("boxes"))
+            valid_dev = self._to_device(np.asarray(boxes_valid, bool), dst.get("boxes_valid"))
+        right_dev = self._to_device(np.asarray(right, np.float32), dst.get("right"))
+        if static is None:
+            steps.frame = FrameInput(left=left_dev, right=right_dev, boxes=boxes_dev, boxes_valid=valid_dev)
         reseed = (
             self.reinit_after_lost > 0 and self._consecutive_lost >= self.reinit_after_lost
         )
         if self._n_processed == 0 or reseed:
-            self.state, out = init_step(self.state, frame, self.cfg)
+            out = steps.init()
             if reseed:
                 self.n_reinits += 1
             self._consecutive_lost = 0
         else:
-            self.state, out = track_step(self.state, frame, self.cfg)
+            out = steps.track()
         self._n_processed += 1
 
         fidx = self._n_processed - 1
@@ -218,12 +273,16 @@ class VOPipeline:
             and self._n_processed >= self.cfg.window.window_frames
         ):
             if self.window_ba is not None:
-                self.state, _ = self.window_ba.refine(self.state)
+                steps.load_state(self.window_ba.refine(steps.state, self._n_processed)[0])
+                T_cw, T_wc = steps.state.T_cw, lie.T_inv(steps.state.T_cw)
             else:
-                self.state = refine_state(self.state, self.cfg)
+                T_cw, T_wc = steps.refine()
             # the closed-form rigid inverse; the reference's jnp.linalg.inv
             # agrees to float32 rounding (~1e-7)
-            out = out._replace(T_cw=self.state.T_cw, T_wc=lie.T_inv(self.state.T_cw))
+            out = out._replace(T_cw=T_cw, T_wc=T_wc)
+        if steps.capture:
+            # the next replay overwrites the graphs' outputs and state
+            out = TrackOutputs(*(x.clone() for x in out))
 
         # one-frame-deferred readback: consume frame t-1 after dispatching t
         prev = self._pending

@@ -4,11 +4,13 @@ Port of ``stereo_semantic_vo_tpu.engine.state``.  The 4-frame sliding-window
 map is a ring of W*K slots where slot ``(f % W) * K + k`` holds the map
 point attached to keypoint ``k`` of frame ``f``.
 
+``frame_idx`` is a 0-d int32 tensor on the state's device, as the
+reference keeps it: the step reads it on the device, so a captured CUDA
+graph of the step (engine/graphs.py) advances it on every replay.  Host
+code that needs the count keeps its own.
+
 Differences from the reference:
 
-* ``frame_idx`` is a host int.  The frame counter advances the same way on
-  every run, so holding it on the host costs no device readback, and ring
-  regions become plain slices.
 * Descriptors are int32 bit patterns of the reference's uint32 words.
 * ``last_desc_pm1`` / ``map_desc_pm1`` (the +-1 form for the TPU's matrix
   unit) are dropped.
@@ -24,7 +26,7 @@ from stereo_semantic_vo_tpu_torch.core.config import VOConfig
 
 
 class VOState(NamedTuple):
-    frame_idx: int              # index of the last processed frame (-1: none)
+    frame_idx: torch.Tensor     # () int32 index of the last processed frame (-1: none)
     T_cw: torch.Tensor          # (4, 4) pose of the last processed frame
     velocity: torch.Tensor      # (4, 4) last frame <- frame before it
 
@@ -61,7 +63,7 @@ def init_state(cfg: VOConfig, device: torch.device | str = "cuda") -> VOState:
 
     eye = torch.eye(4, dtype=f32, device=device)
     return VOState(
-        frame_idx=-1,
+        frame_idx=torch.full((), -1, dtype=i32, device=device),
         T_cw=eye.clone(),
         velocity=eye.clone(),
         last_uv=z((K, 2)),

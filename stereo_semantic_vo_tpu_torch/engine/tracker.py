@@ -5,8 +5,10 @@ ring-map update, all on fixed shapes with masks.
 Port of ``stereo_semantic_vo_tpu.engine.tracker``.  Every guard is a
 ``torch.where``; nothing in ``init_step`` / ``track_step`` reads a device
 value back to the host, so a caller can dispatch frame t while it consumes
-frame t-1's outputs.  The RANSAC generator is seeded from
-``(cfg.pnp.seed, frame index)``.
+frame t-1's outputs.  The frame index ``t`` is read from the state's device
+counter and every ring write lands at a device offset, so one captured CUDA
+graph of a step serves every frame (engine/graphs.py).  RANSAC draws under
+``fold_in(PRNGKey(cfg.pnp.seed), t)`` on the device, as the reference does.
 """
 
 from __future__ import annotations
@@ -60,22 +62,21 @@ def _project_uv(cam, T_cw, Xw):
     return torch.stack([u, v], dim=-1), z
 
 
-def _region(frame: int, K: int, W: int) -> slice:
-    """Slots of the ring region that belongs to ``frame``."""
-    start = (frame % W) * K
-    return slice(start, start + K)
+def _region_slots(frame: torch.Tensor, K: int, W: int) -> torch.Tensor:
+    """(K,) slots of the ring region that belongs to ``frame`` (a 0-d
+    device tensor)."""
+    return (frame.to(torch.int64) % W) * K + torch.arange(K, device=frame.device)
 
 
-def _set_region(arr: torch.Tensor, frame: int, K: int, W: int, src: torch.Tensor) -> torch.Tensor:
-    out = arr.clone()
-    out[_region(frame, K, W)] = src.to(arr.dtype)
-    return out
+def _set_region(arr: torch.Tensor, frame: torch.Tensor, K: int, W: int, src: torch.Tensor) -> torch.Tensor:
+    """``arr`` with the ring region of ``frame`` replaced by ``src``: a copy
+    at a device offset, the reference's ``dynamic_update_slice``."""
+    return arr.index_copy(0, _region_slots(frame, K, W), src.to(arr.dtype))
 
 
-def _set_row(arr: torch.Tensor, row: int, src: torch.Tensor) -> torch.Tensor:
-    out = arr.clone()
-    out[row] = src
-    return out
+def _set_row(arr: torch.Tensor, frame: torch.Tensor, W: int, src: torch.Tensor) -> torch.Tensor:
+    """``arr`` with row ``frame % W`` replaced by ``src``."""
+    return arr.index_copy(0, (frame.to(torch.int64) % W).reshape(1), src[None].to(arr.dtype))
 
 
 def cull_dynamic(F, uv_last, uv, m3, in_box, slot3, map_bad, cfg: VOConfig) -> tuple[torch.Tensor, torch.Tensor]:
@@ -92,12 +93,6 @@ def cull_dynamic(F, uv_last, uv, m3, in_box, slot3, map_bad, cfg: VOConfig) -> t
     return dynamic, map_bad
 
 
-def _ransac_generator(cfg: VOConfig, frame: int, device) -> torch.Generator:
-    g = torch.Generator(device=device)
-    g.manual_seed((cfg.pnp.seed << 32) + frame)
-    return g
-
-
 @f32_geometry
 def init_step(state: VOState, frame: FrameInput, cfg: VOConfig) -> tuple[VOState, TrackOutputs]:
     """Map (re)initialization: back-project every keypoint with valid depth
@@ -112,7 +107,7 @@ def init_step(state: VOState, frame: FrameInput, cfg: VOConfig) -> tuple[VOState
     near = st.depth <= (cfg.camera.bf / cfg.camera.fx) * cfg.camera.th_depth
     create = kp.valid & st.valid & near & ~in_box
 
-    t = max(state.frame_idx + 1, 0)
+    t = torch.clamp_min(state.frame_idx + 1, 0)
     T_cw = state.T_cw
     Xw = lie.transform_points(lie.T_inv(T_cw), backproject(cam, kp.uv, st.depth)[None])[0]
 
@@ -133,9 +128,9 @@ def init_step(state: VOState, frame: FrameInput, cfg: VOConfig) -> tuple[VOState
         map_bad=_set_region(state.map_bad, t, K, W, torch.zeros_like(create)),
         map_create_id=_set_region(state.map_create_id, t, K, W, torch.where(create, t, -100)),
         map_uid=_set_region(state.map_uid, t, K, W, torch.where(create, uid, -1)),
-        win_T_cw=_set_row(state.win_T_cw, t % W, T_cw),
-        win_uv=_set_row(state.win_uv, t % W, kp.uv),
-        win_disp=_set_row(state.win_disp, t % W, torch.where(st.valid, st.disparity, -1.0)),
+        win_T_cw=_set_row(state.win_T_cw, t, W, T_cw),
+        win_uv=_set_row(state.win_uv, t, W, kp.uv),
+        win_disp=_set_row(state.win_disp, t, W, torch.where(st.valid, st.disparity, -1.0)),
     )
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     return new_state, TrackOutputs(
@@ -166,8 +161,8 @@ def track_step(state: VOState, frame: FrameInput, cfg: VOConfig) -> tuple[VOStat
     live = state.map_valid & ~state.map_bad & age_ok
 
     # ---- 3. last-frame matching (gate < 15)
-    last_slots = ((t - 1) % W) * K + torch.arange(K, device=dev)
-    last_has_mp = state.last_valid & live[_region(t - 1, K, W)]
+    last_slots = _region_slots(t - 1, K, W)
+    last_has_mp = state.last_valid & live.index_select(0, last_slots)
     T_pred = state.velocity @ state.T_cw
     b_idx, b_dist, _ = match(state.last_desc, kp.desc, last_has_mp, kp.valid)
     b_idx = b_idx.to(torch.int64)
@@ -222,7 +217,7 @@ def track_step(state: VOState, frame: FrameInput, cfg: VOConfig) -> tuple[VOStat
         urm = has_obs & st.valid
     pnp = pnp_ops.ransac_pnp(
         obs_Xw, kp.uv, has_obs, cam, cfg.pnp,
-        generator=_ransac_generator(cfg, t, dev), T_seed=T_pred, ur=ur, ur_mask=urm,
+        t=t, T_seed=T_pred, ur=ur, ur_mask=urm,
     )
     ba = ba_ops.motion_only_ba(pnp.T_cw, obs_Xw, kp.uv, has_obs, cam, cfg.ba, ur=ur, ur_mask=urm)
     # accept the BA pose only if it keeps most of the RANSAC consensus
@@ -276,9 +271,9 @@ def track_step(state: VOState, frame: FrameInput, cfg: VOConfig) -> tuple[VOStat
         map_bad=_set_region(map_bad, t, K, W, src_bad),
         map_create_id=_set_region(state.map_create_id, t, K, W, torch.where(src_valid, src_create, -100)),
         map_uid=_set_region(state.map_uid, t, K, W, torch.where(src_valid, src_uid, -1)),
-        win_T_cw=_set_row(state.win_T_cw, t % W, T_cw),
-        win_uv=_set_row(state.win_uv, t % W, kp.uv),
-        win_disp=_set_row(state.win_disp, t % W, torch.where(st.valid, st.disparity, -1.0)),
+        win_T_cw=_set_row(state.win_T_cw, t, W, T_cw),
+        win_uv=_set_row(state.win_uv, t, W, kp.uv),
+        win_disp=_set_row(state.win_disp, t, W, torch.where(st.valid, st.disparity, -1.0)),
     )
     return new_state, TrackOutputs(
         T_cw=T_cw,
@@ -299,11 +294,16 @@ def track_step(state: VOState, frame: FrameInput, cfg: VOConfig) -> tuple[VOStat
 
 
 def make_tracker(cfg: VOConfig, device: torch.device | str = "cuda"):
-    """Returns (state0, step) where step(state, frame) dispatches init/track."""
+    """Returns (state0, step) where step(state, frame) runs ``init_step`` on
+    its first call and ``track_step`` after, choosing from a host count as
+    the pipeline does (the state's counter stays on the device)."""
     state0 = init_state(cfg, device)
+    calls = 0
 
     def step(state: VOState, frame: FrameInput):
-        if state.frame_idx < 0:
+        nonlocal calls
+        calls += 1
+        if calls == 1:
             return init_step(state, frame, cfg)
         return track_step(state, frame, cfg)
 

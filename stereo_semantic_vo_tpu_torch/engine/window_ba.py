@@ -9,15 +9,16 @@ equality-matrix build on the device.  After refinement, landmark positions
 are written back into every ring copy of each uid and the newest pose
 replaces ``state.T_cw``.
 
-Differences from the reference: ``frame_idx`` is a host int (engine/state.py),
-so the window order is a roll and "is the window full" is a Python test.
-The reference's ``lax.cond`` on "at least 8 landmarks" is a device
-predicate; here the solve always runs and its result is kept or dropped by
-``torch.where``, as the reference's sharded variant does, so refinement
-never reads back to the host.  ``WindowBA(cfg, mesh=...)`` runs the same
-trim and gate, then the landmark-sharded solve of
-``parallel/sharded_ba.py`` over the mesh's ranks (the engine of
-``VOPipeline(ba_mesh=...)``).
+The window order is a device gather by the state's frame counter.  The
+reference keeps the solve's result under ``lax.cond`` on "the window is
+full and at least 8 landmarks survive", a device predicate; here the solve
+always runs and its result is kept or dropped by ``torch.where`` on the
+same predicate, as the reference's sharded variant does, so refinement
+never reads back to the host and one captured CUDA graph serves every
+frame (engine/graphs.py).  ``WindowBA(cfg, mesh=...)`` runs the same trim
+and gate, then the landmark-sharded solve of ``parallel/sharded_ba.py``
+over the mesh's ranks (the engine of ``VOPipeline(ba_mesh=...)``); it is
+gated on the pipeline's host count of frames.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ def build_observations(
     map_uid: torch.Tensor,     # (M,)
     map_valid: torch.Tensor,   # (M,)
     map_bad: torch.Tensor,     # (M,)
-    frame_idx: int,
+    frame_idx: torch.Tensor,   # () the state's frame counter
     win_uid: torch.Tensor,     # (W, K) per-frame keypoint uid bindings
     win_uv: torch.Tensor,      # (W, K, 2)
     win_valid: torch.Tensor,   # (W, K)
@@ -113,24 +114,25 @@ def _write_back(map_Xw, refined_points, point_valid, primary_idx, has_primary):
 
 def _window_view(state: VOState, W: int, K: int):
     """Oldest->newest window tensors from the state.  The ring region
-    (f % W) is frame f's keypoint->map binding; the window order is the
-    ring rolled by ``first``, the region of the oldest window frame."""
-    first = (state.frame_idx - (W - 1)) % W
+    (f % W) is frame f's keypoint->map binding; ``order`` holds the ring
+    regions of the window frames, oldest first, gathered on the device."""
+    order = (state.frame_idx - (W - 1) + torch.arange(W, device=state.win_T_cw.device)) % W
 
     def ordered(x):
-        return torch.roll(x, -first, dims=0)
+        return x.index_select(0, order)
 
     poses = ordered(state.win_T_cw)
     win_uid = ordered(state.map_uid.reshape(W, K))
     win_valid = ordered((state.map_valid & (state.map_uid >= 0)).reshape(W, K))
-    return first, poses, win_uid, ordered(state.win_uv), win_valid, ordered(state.win_disp)
+    return order, poses, win_uid, ordered(state.win_uv), win_valid, ordered(state.win_disp)
 
 
 def _trim_and_gate(state: VOState, obs: ObsTensors, poses, cam: Camera, cfg: VOConfig):
     """Seed-pose trim and solvability gate.  An observation already far off
     at the seed poses is a wrong match, which joint LM would drag every
     window pose toward.  Returns (obs_mask, point_valid, can): ``can`` is
-    the device flag "at least 8 landmarks survive"."""
+    the device flag "the window is full and at least 8 landmarks
+    survive"."""
     obs_mask = obs.obs_mask
     if cfg.ba.trim_px > 0:
         pc = lie.transform_points(poses, state.map_Xw)  # (W, M, 3)
@@ -143,20 +145,19 @@ def _trim_and_gate(state: VOState, obs: ObsTensors, poses, cam: Camera, cfg: VOC
     seen = torch.sum(obs_mask, dim=0)
     point_valid = obs.point_valid & (seen >= 2)
     obs_mask = obs_mask & point_valid[None, :]
-    return obs_mask, point_valid, torch.sum(point_valid) >= 8
+    return obs_mask, point_valid, (state.frame_idx + 1 >= poses.shape[0]) & (torch.sum(point_valid) >= 8)
 
 
 @f32_geometry
 def refine_state(state: VOState, cfg: VOConfig) -> VOState:
-    """Window refinement of the state, without host syncs.  Before the
-    window holds W frames the state passes through unchanged; after, the
-    LM solve always runs and is kept only where ``can`` holds."""
+    """Window refinement of the state, without host syncs.  The LM solve
+    always runs and is kept only where ``can`` holds: before the window
+    holds W frames, or with fewer than 8 landmarks, the state's values pass
+    through unchanged."""
     W = cfg.window.window_frames
     K = cfg.orb.max_keypoints
-    if state.frame_idx + 1 < W:
-        return state
     cam = Camera.from_config(cfg.camera, state.T_cw.device)
-    first, poses, win_uid, win_uv, win_valid, win_disp = _window_view(state, W, K)
+    order, poses, win_uid, win_uv, win_valid, win_disp = _window_view(state, W, K)
     obs = build_observations(
         state.map_uid, state.map_valid, state.map_bad, state.frame_idx,
         win_uid, win_uv, win_valid, W, K, win_disp,
@@ -170,7 +171,7 @@ def refine_state(state: VOState, cfg: VOConfig) -> VOState:
     return state._replace(
         map_Xw=torch.where(can, new_Xw, state.map_Xw),
         T_cw=torch.where(can, res.poses[-1], state.T_cw),
-        win_T_cw=torch.where(can, torch.roll(res.poses, first, dims=0), state.win_T_cw),
+        win_T_cw=torch.where(can, state.win_T_cw.index_copy(0, order, res.poses), state.win_T_cw),
     )
 
 
@@ -195,15 +196,18 @@ class WindowBA:
             self.cam = Camera.from_config(cfg.camera, mesh.device)
             self._sharded = make_sharded_local_ba(mesh, self.cam, cfg.ba, stereo_edges=True)
 
-    def ready(self, state: VOState) -> bool:
-        return state.frame_idx + 1 >= self.cfg.window.window_frames
+    def ready(self, n_frames: int) -> bool:
+        """Whether ``n_frames`` tracked frames (the pipeline's host count)
+        fill the window."""
+        return n_frames >= self.cfg.window.window_frames
 
-    def refine(self, state: VOState) -> tuple[VOState, dict]:
+    def refine(self, state: VOState, n_frames: int) -> tuple[VOState, dict]:
         """-> (refined state, stats of device scalars: n_obs, n_points, cost;
-        empty without a mesh or before the window is full)."""
+        empty without a mesh or before the window is full).  ``n_frames``
+        is the host count of frames ``state`` has tracked."""
         if self._sharded is None:
             return refine_state(state, self.cfg), {}
-        if not self.ready(state):
+        if not self.ready(n_frames):
             return state, {}
         return self._sharded_refine(state)
 
@@ -211,7 +215,7 @@ class WindowBA:
     def _sharded_refine(self, state: VOState) -> tuple[VOState, dict]:
         cfg, mesh = self.cfg, self.mesh
         W, K = cfg.window.window_frames, cfg.orb.max_keypoints
-        first, poses, win_uid, win_uv, win_valid, win_disp = _window_view(state, W, K)
+        order, poses, win_uid, win_uv, win_valid, win_disp = _window_view(state, W, K)
         obs = build_observations(
             state.map_uid, state.map_valid, state.map_bad, state.frame_idx,
             win_uid, win_uv, win_valid, W, K, win_disp,
@@ -232,6 +236,6 @@ class WindowBA:
         new_state = state._replace(
             map_Xw=torch.where(can, new_Xw, state.map_Xw),
             T_cw=torch.where(can, res.poses[-1], state.T_cw),
-            win_T_cw=torch.where(can, torch.roll(res.poses, first, dims=0), state.win_T_cw),
+            win_T_cw=torch.where(can, state.win_T_cw.index_copy(0, order, res.poses), state.win_T_cw),
         )
         return new_state, {"n_obs": torch.sum(om), "n_points": torch.sum(pv), "cost": res.cost}

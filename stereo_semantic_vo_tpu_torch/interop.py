@@ -45,14 +45,13 @@ def config_from_jax(cfg: Any) -> C.VOConfig:
 
 def state_from_numpy(arrays: Mapping[str, Any], device: torch.device | str = "cuda") -> VOState:
     """The JAX VOState's fields as numpy arrays (``{k: np.asarray(v)}``) ->
-    VOState on ``device``.  uint32 descriptors become int32 bit patterns; the
-    ``*_pm1`` fields are dropped."""
+    VOState on ``device``.  uint32 descriptors become int32 bit patterns,
+    ``frame_idx`` a 0-d int32 tensor; the ``*_pm1`` fields are dropped."""
     out = {}
     for name in VOState._fields:
         a = np.asarray(arrays[name])
         if name == "frame_idx":
-            out[name] = int(a)
-            continue
+            a = a.astype(np.int32)
         if a.dtype == np.uint32:
             a = a.view(np.int32)
         out[name] = torch.from_numpy(np.array(a)).to(device)  # copy: JAX buffers are read-only
@@ -64,10 +63,9 @@ def state_to_numpy(state: VOState) -> dict[str, np.ndarray]:
     uint32, frame_idx as an int32 scalar), without the ``*_pm1`` fields."""
     out = {}
     for name, v in state._asdict().items():
-        if name == "frame_idx":
-            out[name] = np.asarray(v, np.int32)
-            continue
         a = v.detach().cpu().numpy()
+        if name == "frame_idx":
+            a = a.astype(np.int32)
         out[name] = a.view(np.uint32) if name in ("last_desc", "map_desc") else a
     return out
 

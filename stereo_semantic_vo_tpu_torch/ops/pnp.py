@@ -5,16 +5,18 @@ normalized minimal DLT solves as one batch of 12x12 inverse iterations,
 every hypothesis scored against every correspondence as a (B, K) tensor,
 the best (optionally the constant-velocity seed) polished with LM.
 
-Two differences from the reference, both forced by PyTorch:
+Samples are the reference's own: ``sample_indices`` computes
+``jax.random``'s threefry-2x32 bits for ``fold_in(PRNGKey(seed), t)`` with
+integer ops on the device (int64 masked to 32 bits), so the same
+``(seed, t)`` gives the same (B, S) indices whatever ran before, on the CPU
+and on a card, and inside a CUDA graph.  ``ransac_pnp`` also accepts the
+(B, S) indices directly.
 
-* Samples come from a ``torch.Generator`` the caller seeds; JAX's threefry
-  draws cannot be reproduced, so ``ransac_pnp`` also accepts the (B, S)
-  sample indices directly (the tests feed it the reference's draws).
-* No linear-algebra call here may raise or read back to the host: the
-  Cholesky is ``cholesky_ex`` with failed factorizations set to NaN (the
-  hypothesis then scores 0 inliers, as in JAX), and the 3x3 SVD of the
-  reference's ``_P_to_T`` is replaced by a scaled Newton polar
-  decomposition with closed-form 3x3 inverses and determinants.
+No linear-algebra call here may raise or read back to the host: the
+Cholesky is ``cholesky_ex`` with failed factorizations set to NaN (the
+hypothesis then scores 0 inliers, as in JAX), and the 3x3 SVD of the
+reference's ``_P_to_T`` is replaced by a scaled Newton polar
+decomposition with closed-form 3x3 inverses and determinants.
 """
 
 from __future__ import annotations
@@ -79,14 +81,49 @@ def smallest_right_singular_vector3(M: torch.Tensor, squarings: int = 5) -> torc
     return col / torch.linalg.vector_norm(col)
 
 
-def _sample_indices(
-    generator: torch.Generator, valid: torch.Tensor, B: int, S: int
-) -> torch.Tensor:
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k0, k1, x0: torch.Tensor, x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 hash of ``jax.random`` (20 rounds) on int64
+    tensors holding uint32 values; the key words are ints or tensors."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def random_key(seed: int, t: torch.Tensor | None = None, device=None) -> tuple:
+    """``jax.random.PRNGKey(seed)``, folded with the frame counter ``t``
+    (a 0-d integer tensor) as ``jax.random.fold_in`` does, as two uint32
+    words (int64 0-d tensors once ``t`` is given)."""
+    k0, k1 = (seed >> 32) & _M32, seed & _M32
+    if t is None:
+        return k0, k1
+    zero = torch.zeros((), dtype=torch.int64, device=t.device)
+    return _threefry2x32(k0, k1, zero, t.to(torch.int64) & _M32)
+
+
+def sample_indices(key: tuple, valid: torch.Tensor, B: int, S: int) -> torch.Tensor:
     """(B, S) distinct indices of valid correspondences per hypothesis: the
-    top S of i.i.d. uniform scores (masked entries score -1)."""
-    u = torch.rand((B, valid.shape[0]), generator=generator, device=valid.device)
-    scores = torch.where(valid[None, :], u, -1.0)
-    return torch.topk(scores, S, dim=1).indices
+    reference's Gumbel top-k under ``key``.  The Gumbel score is monotone in
+    its uniform, whose order is that of the 23 mantissa bits of
+    ``jax.random.uniform``; ties go to the lower index, and masked entries
+    rank below every valid one (lowest index first)."""
+    K = valid.shape[0]
+    count = torch.arange(B * K, dtype=torch.int64, device=valid.device).reshape(B, K)
+    b0, b1 = _threefry2x32(*key, torch.zeros_like(count), count)
+    mant = (b0 ^ b1) >> 9
+    tie = (K - 1) - torch.arange(K, dtype=torch.int64, device=valid.device)
+    score = torch.where(valid[None, :], (mant + 1) * K + tie, tie)
+    return torch.topk(score, S, dim=1).indices
 
 
 def smallest_eigvec(M: torch.Tensor, iters: int = 8) -> torch.Tensor:
@@ -170,7 +207,7 @@ def ransac_pnp(
     valid: torch.Tensor,
     cam: Camera,
     cfg: PnPConfig,
-    generator: torch.Generator | None = None,
+    t: torch.Tensor | None = None,
     refine_cfg: BAConfig | None = None,
     T_seed: torch.Tensor | None = None,
     ur: torch.Tensor | None = None,
@@ -179,16 +216,14 @@ def ransac_pnp(
 ) -> PnPResult:
     """Estimate T_cw from (K, 3) world points and (K, 2) pixel observations.
 
-    ``idx`` (B, S) gives the samples; otherwise they are drawn with
-    ``generator`` (a fresh one seeded with ``cfg.seed`` if None).
+    ``idx`` (B, S) gives the samples; otherwise they are drawn under
+    ``fold_in(PRNGKey(cfg.seed), t)`` (``PRNGKey(cfg.seed)`` if ``t`` is
+    None), as the reference draws them.
     ``T_seed`` (4x4) replaces hypothesis 0 with the motion-model prediction."""
     B, S = cfg.num_hypotheses, cfg.sample_size
     xn = torch.stack([(uv[:, 0] - cam.cx) / cam.fx, (uv[:, 1] - cam.cy) / cam.fy], dim=-1)
     if idx is None:
-        if generator is None:
-            generator = torch.Generator(device=X_w.device)
-            generator.manual_seed(cfg.seed)
-        idx = _sample_indices(generator, valid, B, S)
+        idx = sample_indices(random_key(cfg.seed, t), valid, B, S)
     idx = idx.to(device=X_w.device, dtype=torch.int64)
     Ps = _dlt_pose(X_w[idx], xn[idx])                          # (B, 3, 4)
     if T_seed is not None:

@@ -4,17 +4,19 @@ devices.
 Port of ``stereo_semantic_vo_tpu.parallel.dp_tracker``.  The reference
 stacks B states on a leading axis and runs one jitted step under ``vmap``
 and ``shard_map``, ``lax.cond`` choosing ``init_step`` or ``track_step``
-per stream.  Here ``VOState.frame_idx`` is a host int (engine/state.py), so
-a stacked state could not carry it: the batch of states is a list of
-per-stream ``VOState``, and the choice is a host test on ``frame_idx < 0``
-that reads nothing from the device.  A stream may start at any frame:
-give it a fresh ``init_state`` (``frame_idx == -1``) and its next frame
-runs ``init_step``.
+per stream on the device counter.  Here the batch of states is a list of
+per-stream ``VOState`` and the choice is a host test on a count the
+tracker keeps for each stream: the last step's state of a stream and the
+state it handed out for it have known counts, and any other state (a fresh
+``init_state``, a loaded checkpoint) has its ``frame_idx`` read once, the
+only read from the device, before its step.  A stream may start at any
+frame: give it a fresh ``init_state`` (``frame_idx == -1``) and its next
+frame runs ``init_step``.
 
 Stream b lives on ``devices[b % len(devices)]``.  On a card each stream is
 enqueued on a CUDA stream of its own, so the device may overlap the
 streams' kernels; the host dispatches them one after another.  ``step``
-reads nothing back to the host.
+on states it handed out reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -50,6 +52,8 @@ def make_dp_tracker(devices, cfg: VOConfig):
     leading axis, on the first device."""
     devs = _devices(devices)
     streams: dict[int, torch.cuda.Stream] = {}
+    # stream b -> [(the state its last step took, its frame index), (the one it handed out, its index)]
+    known: dict[int, list[tuple[VOState, int]]] = {}
 
     def step(states: Sequence[VOState], frames: FrameInput) -> tuple[list[VOState], TrackOutputs]:
         if frames.left.shape[0] != len(states):
@@ -58,7 +62,10 @@ def make_dp_tracker(devices, cfg: VOConfig):
         for b, state in enumerate(states):
             dev = state.T_cw.device
             fr = FrameInput(*(x[b] for x in frames))
-            run = init_step if state.frame_idx < 0 else track_step
+            frame_idx = next((i for st, i in known.get(b, ()) if st is state), None)
+            if frame_idx is None:
+                frame_idx = int(state.frame_idx)
+            run = init_step if frame_idx < 0 else track_step
             if dev.type != "cuda":
                 fr = FrameInput(*(x.to(dev) for x in fr))
                 new, out = run(state, fr, cfg)
@@ -75,6 +82,7 @@ def make_dp_tracker(devices, cfg: VOConfig):
                 for x in (*fr, *(v for v in state if isinstance(v, torch.Tensor))):
                     x.record_stream(s)
                 used.append((dev, s))
+            known[b] = [(state, frame_idx), (new, max(frame_idx + 1, 0))]
             new_states.append(new)
             outs.append(out)
         for dev, s in used:

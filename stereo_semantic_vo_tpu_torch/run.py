@@ -18,7 +18,9 @@ on a CUDA device both run on the package's kernels.  ``--yolo-cfg``
 detects online with a darknet cfg (models/yolo.YoloDetector) on the same
 device, at ``cfg.semantic``'s threshold, NMS IoU and box count, with the
 weights of ``--yolo-weights`` or, without them, random weights; the
-detections replace the offline boxes.
+detections replace the offline boxes.  On a CUDA device each frame
+replays CUDA graphs of the step (engine/graphs.py), as the reference's
+jitted step runs; the CPU dispatches eagerly.
 
 The report printed last (JSON) holds the reference's keys (``n_frames``,
 the frame times, ``ate_rmse_m`` with ``--gt``) and the device, the points

@@ -11,7 +11,8 @@ and ``ba.hessian_backend`` = "pallas"); ``--path online`` the sparse path
 with online detection (``zoo.kitti_tiny_v2`` with random weights on a
 side CUDA stream, one frame late, in place of the offline boxes);
 ``--path steered`` the sparse path with steered BRIEF (``orb.steer``).  It drives
-``VOPipeline`` of ``VOConfig.kitti("00")`` over the procedural 1241x376
+``VOPipeline`` (which replays CUDA graphs of its step where the checkout
+has them) of ``VOConfig.kitti("00")`` over the procedural 1241x376
 two-plane sequence (a detection box every fifth frame, as
 ``chip_smoke.py`` feeds it): ``--warmup`` frames, then ``--frames`` frames
 timed on the host clock (median ms/frame), then ``--frames`` more under

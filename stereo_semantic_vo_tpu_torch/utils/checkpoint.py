@@ -39,7 +39,7 @@ def save_state(path: str, state: VOState) -> None:
 
 def load_state(path: str, template: VOState) -> VOState:
     """Read a checkpoint onto ``template``'s device; ``frame_idx`` comes
-    back as a host int."""
+    back as a 0-d int32 tensor there."""
     with np.load(path) as data:
         if _SCHEMA_KEY not in data:
             raise ValueError(

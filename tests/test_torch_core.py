@@ -168,7 +168,8 @@ def test_state_interop_round_trip():
     cfg = JC.VOConfig(orb=JC.ORBConfig(max_keypoints=64))
     arrays = {k: np.asarray(v) for k, v in j_init_state(cfg)._asdict().items()}
     st = interop.state_from_numpy(arrays, "cpu")
-    assert st.last_desc.dtype == torch.int32 and st.frame_idx == -1
+    assert st.last_desc.dtype == torch.int32
+    assert st.frame_idx.dtype == torch.int32 and st.frame_idx.shape == () and int(st.frame_idx) == -1
     back = interop.state_to_numpy(st)
     assert set(arrays) - set(back) == {"last_desc_pm1", "map_desc_pm1"}
     for k, v in back.items():

@@ -31,7 +31,11 @@ in another order); a detector from the exported weights equal to one from
 the folded params; a pipeline resumed from a checkpoint equal, bit for bit,
 to the uninterrupted run; on chip_smoke.py's mover scene, a step of
 ``run.py --no-semantics``'s configuration on the card against the CPU
-within 1e-3 m and 1e-3 rad, and nothing culled without semantics."""
+within 1e-3 m and 1e-3 rad, and nothing culled without semantics; the
+pipeline replaying CUDA graphs of its step equal, bit for bit, to its eager
+dispatch (sparse and knob over 8 frames, dense with a refine every frame
+over 5), capturing and replaying without a sync, and raising where a
+captured function reads back."""
 
 import dataclasses
 
@@ -41,7 +45,6 @@ import torch
 
 from stereo_semantic_vo_tpu_torch.core.camera import Camera
 from stereo_semantic_vo_tpu_torch.core.config import CameraConfig, StereoConfig, VOConfig
-from stereo_semantic_vo_tpu_torch.engine import pipeline as TPL
 from stereo_semantic_vo_tpu_torch.engine import tracker as TT
 from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline
 from stereo_semantic_vo_tpu_torch.engine.state import init_state
@@ -782,26 +785,24 @@ class _SlowDetector:
         return self.det.detect(img)
 
 
-def test_side_stream_detection_is_awaited_by_the_next_frame(monkeypatch):
+@pytest.mark.parametrize("capture", [False, True], ids=["eager", "graphs"])
+def test_side_stream_detection_is_awaited_by_the_next_frame(capture):
     """Frame t+1's step sees detect(frame t) although detection, on its side
     stream, ends long after the main stream reached the step: the main
-    stream waits on detection's event, and the boxes are not reused early."""
+    stream waits on detection's event, and the boxes are not reused early.
+    The boxes a step read are copied on the main stream right after it
+    (under graphs, from the static buffer the next frame overwrites)."""
     dev = cuda_device()
     nb = 128
     det = zoo.kitti_tiny_v2(conf_threshold=0.01, max_boxes=nb, device=dev)
     cfg = _online_cfg(nb)
     src = two_plane_frame_source(240, 320)
     seen = []
-    step = TPL.track_step
-
-    def track_step(state, frame, cfg):
-        seen.append((frame.boxes.clone(), frame.boxes_valid.clone()))
-        return step(state, frame, cfg)
-
-    monkeypatch.setattr(TPL, "track_step", track_step)
-    pipe = VOPipeline(cfg, device=dev, detector=_SlowDetector(det), write_trajectory=False)
+    pipe = VOPipeline(cfg, device=dev, detector=_SlowDetector(det), write_trajectory=False, capture=capture)
     for i in range(4):
         pipe.process_frame(*src(i), None, None, 0.1 * i)
+        if i > 0:
+            seen.append((pipe.steps.frame.boxes.clone(), pipe.steps.frame.boxes_valid.clone()))
     pipe.flush()
     assert len(seen) == 3
     for i, (boxes, valid) in enumerate(seen):
@@ -905,7 +906,7 @@ def test_dp_streams_equal_single_stream_runs_and_read_nothing_back():
         for b in range(B):
             if singles[b] is not None:
                 st, seq = singles[b]
-                st, o = (TT.init_step if st.frame_idx < 0 else TT.track_step)(
+                st, o = (TT.init_step if int(st.frame_idx) < 0 else TT.track_step)(
                     st, TT.FrameInput(*(x[b] for x in frames)), cfg)
                 singles[b] = (st, seq + [(s, o)])
     torch.cuda.synchronize()
@@ -916,7 +917,7 @@ def test_dp_streams_equal_single_stream_runs_and_read_nothing_back():
                 assert torch.equal(getattr(outs[s], name)[b], x), (b, s, name)
         for name, x in st._asdict().items():
             y = getattr(states[b], name)
-            assert (x == y) if name == "frame_idx" else torch.equal(x, y), (b, name)
+            assert torch.equal(x, y), (b, name)
     assert all(bool(outs[-1].pnp_ok[b]) for b in range(B))
 
 
@@ -1251,3 +1252,112 @@ def test_no_semantics_culls_nothing_on_the_card():
     off = [int(o.n_culled_dynamic) for o in _mover_steps(dataclasses.replace(cfg, use_semantics=False), dev, 7)]
     assert sum(on) > 0, on
     assert off == [0] * 7
+
+
+# --- the step as CUDA graphs (engine/graphs.py), the pipeline's default on a card
+
+
+def _graph_cfg(kind):
+    k = VOConfig.kitti()
+    cfg = dataclasses.replace(k, camera=CameraConfig(width=320, height=240),
+                              orb=dataclasses.replace(k.orb, max_keypoints=256, n_levels=3))
+    if kind == "knob":
+        cfg = dataclasses.replace(cfg, orb=dataclasses.replace(cfg.orb, fast_backend="pallas"),
+                                  ba=dataclasses.replace(cfg.ba, hessian_backend="pallas"))
+    if kind == "dense":
+        cfg = dataclasses.replace(cfg, stereo=dataclasses.replace(cfg.stereo, sparse_mode="dense"))
+    return cfg
+
+
+def _graph_frames(cfg, n):
+    src = two_plane_frame_source(240, 320)
+    nb = cfg.semantic.max_boxes
+    for i in range(n):
+        boxes, valid = np.zeros((nb, 4), np.float32), np.zeros(nb, bool)
+        if i == 2:  # the culling stage's in-box branch
+            boxes[0], valid[0] = [100.0, 40.0, 200.0, 200.0], True
+        yield (*src(i), boxes, valid, 0.1 * i)
+
+
+def _graph_run(cfg, dev, n, every, capture):
+    from stereo_semantic_vo_tpu_torch.kernels import launch_counters
+
+    counters = launch_counters()
+    before = {name: k.launches for name, k in counters.items()}
+    pipe = VOPipeline(cfg, device=dev, local_ba_every=every, capture=capture, write_trajectory=False)
+    for f in _graph_frames(cfg, n):
+        pipe.process_frame(*f)
+    pipe.flush()
+    torch.cuda.synchronize()
+    return pipe, {name: k.launches - before[name] for name, k in counters.items()}
+
+
+@pytest.mark.parametrize("kind,n,every", [("sparse", 8, 0), ("knob", 8, 0), ("dense", 5, 1)])
+def test_graph_replay_equals_eager_bit_for_bit(kind, n, every):
+    """Every output of every frame and the final state, replaying the
+    captured init / track (and, dense, refine every frame) graphs, equal the
+    eager dispatch's bit for bit, with the same kernel launches."""
+    dev = cuda_device()
+    cfg = _graph_cfg(kind)
+    eager, le = _graph_run(cfg, dev, n, every, capture=False)
+    graph, lg = _graph_run(cfg, dev, n, every, capture=True)
+    assert graph.steps.capture and not eager.steps.capture
+    assert lg == le and lg["extract_patches"] == n
+    assert graph.steps.graphs["track_step"].replays == n - 2
+    if every:
+        assert graph.steps.graphs["refine_state"].replays == n - cfg.window.window_frames
+    for a, b in zip(eager.outputs, graph.outputs):
+        for name, x, y in zip(a._fields, a, b):
+            assert torch.equal(x, y), name
+    for name, x, y in zip(eager.state._fields, eager.state, graph.state):
+        assert torch.equal(x, y), name
+    assert int(graph.state.frame_idx) == n - 1 and all(bool(o.pnp_ok) for o in graph.outputs)
+
+
+def test_graph_capture_and_replay_read_nothing_back():
+    """Four frames of a fresh pipeline under sync debug mode: the eager
+    warm-up and capture of init and track, then two replays (the deferred
+    readback, the pipeline's one sync point, set aside)."""
+    dev = cuda_device()
+    cfg = _graph_cfg("sparse")
+    pipe = VOPipeline(cfg, device=dev, write_trajectory=False)
+    held = []
+    pipe._finalize = lambda out, ts: held.append(out)
+    frames = list(_graph_frames(cfg, 4))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in frames:
+            pipe.process_frame(*f)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert pipe.steps.graphs["track_step"].replays == 2 and len(held) == 3
+    assert all(bool(o.pnp_ok) for o in held) and int(pipe.state.frame_idx) == 3
+
+
+def test_a_capture_that_hits_a_forbidden_op_raises(monkeypatch):
+    """A host read inside a captured function raises at its capture; the
+    pipeline does not fall back to eager dispatch."""
+    from stereo_semantic_vo_tpu_torch.engine import graphs as TGR
+
+    dev = cuda_device()
+    x = torch.ones(4, device=dev)
+    g = TGR.Graph(lambda: x * float(x.sum()), torch.cuda.graph_pool_handle(), dev)
+    with pytest.raises(RuntimeError):
+        g()
+    assert g.graph is None
+    step = TGR.track_step
+
+    def reading_step(state, frame, cfg):
+        new, out = step(state, frame, cfg)
+        assert int(out.n_keypoints) >= 0  # reads the count back to the host
+        return new, out
+
+    monkeypatch.setattr(TGR, "track_step", reading_step)
+    cfg = _graph_cfg("sparse")
+    pipe = VOPipeline(cfg, device=dev, write_trajectory=False)
+    frames = list(_graph_frames(cfg, 2))
+    pipe.process_frame(*frames[0])
+    with pytest.raises(RuntimeError):
+        pipe.process_frame(*frames[1])
+    assert pipe.steps.graphs["track_step"].graph is None

@@ -5,9 +5,9 @@ tests/test_tracker.py's ``CFG`` is ``VOConfig(...)`` with the defaults of
 every section it does not set: steered BRIEF (``steer=True``), sparse
 stereo "strips", the popcount matcher, the einsum BA builds.  Four frames
 of its renderer (240x320, K=256, 3 levels) go through both packages'
-init_step / track_step.  RANSAC draws differ (threefry against
-torch.Generator), so poses are compared within 1e-3 m and 1e-3 rad per
-frame; frame-0 counters are exact, later ones within max(2, 2%); frame 0's
+init_step / track_step.  Both draw RANSAC's samples with JAX's threefry
+bits; the float sums run in other orders, so poses are compared within
+1e-3 m and 1e-3 rad per frame; frame-0 counters are exact, later ones within max(2, 2%); frame 0's
 keypoints and bindings exact."""
 
 import jax

@@ -6,9 +6,8 @@ Four frames of tests/test_tracker.py's renderer (240x320, K=256, 3 levels)
 with VOConfig.kitti()'s knobs, as test_torch_slice.py runs them.  JAX runs
 its FAST and motion-BA Pallas kernels in interpret mode; the port runs
 their plain versions on the CPU (kernels/fast_score.py,
-kernels/ba_hessian.py).  RANSAC draws differ (threefry vs
-torch.Generator), so poses are compared within 1e-3 m and 1e-3 rad per
-frame, as in test_torch_slice.py."""
+kernels/ba_hessian.py).  Poses are compared within 1e-3 m and 1e-3 rad
+per frame, as in test_torch_slice.py."""
 
 import dataclasses
 

@@ -21,7 +21,7 @@ import torch
 
 from stereo_semantic_vo_tpu.engine.pipeline import VOPipeline as JPipeline
 from stereo_semantic_vo_tpu.models import zoo as JZ
-from stereo_semantic_vo_tpu_torch.engine import pipeline as TP
+from stereo_semantic_vo_tpu_torch.engine import graphs as TG
 from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline as TPipeline
 from stereo_semantic_vo_tpu_torch.models import yolo as TY
 from stereo_semantic_vo_tpu_torch.models import zoo as TZ
@@ -116,8 +116,8 @@ def _run(pipe, frames):
         return wrapped
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(TP, "init_step", recorder(TP.init_step))
-        mp.setattr(TP, "track_step", recorder(TP.track_step))
+        mp.setattr(TG, "init_step", recorder(TG.init_step))
+        mp.setattr(TG, "track_step", recorder(TG.track_step))
         for i, (left, right) in enumerate(frames):
             pipe.process_frame(left, right, None, None, 0.1 * i)
             if pipe._det_pending is not None:
@@ -198,13 +198,13 @@ def test_detections_are_cut_or_padded_to_max_boxes(max_boxes):
 def test_run_drops_offline_boxes_with_a_detector(monkeypatch):
     tdet = TY.YoloDetector(YOLO_CFG, conf_threshold=CONF, device="cpu")
     seen = []
-    step = TP.init_step
+    step = TG.init_step
 
     def init_step(state, frame, cfg):
         seen.append(frame.boxes_valid.clone())
         return step(state, frame, cfg)
 
-    monkeypatch.setattr(TP, "init_step", init_step)
+    monkeypatch.setattr(TG, "init_step", init_step)
     left, right = _frames()[0]
     offline = (0, left, right, np.ones((32, 4), np.float32), np.ones(32, bool), 0.0)
     TPipeline(_kitti_knobs()[1], device="cpu", detector=tdet, write_trajectory=False).run([offline], prefetch=False)

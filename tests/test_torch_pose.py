@@ -1,12 +1,13 @@
 """PyTorch port, pose stack (epipolar, PnP, motion-only BA) against the JAX
 package and the OpenCV goldens in tests/fixtures/cv/.
 
-JAX's threefry draws cannot be reproduced, so the PnP tests hand the port
-the reference's sample indices.  Tolerances: elementwise geometry rtol 1e-5;
+The PnP tests hand the port the reference's sample indices (the port's own
+draws equal them: tests/test_torch_ransac_draws.py).  Tolerances: elementwise geometry rtol 1e-5;
 poses 1e-4 (float32 solves in another order); the fundamental matrix is
 compared through epipolar distances (0.02 px on exact data, median within
 0.05 px on the 25%-outlier golden set)."""
 
+import dataclasses
 import os
 
 import jax
@@ -151,8 +152,7 @@ def test_ransac_pnp_with_reference_samples_matches_jax_and_opencv():
 def test_ransac_pnp_own_sampler_and_seed():
     X, uv = _pnp_data()
     valid = torch.ones(len(X), dtype=torch.bool)
-    g = torch.Generator().manual_seed(123)
-    r = TP.ransac_pnp(t(X), t(uv), valid, TC, TCFG.pnp, generator=g)
+    r = TP.ransac_pnp(t(X), t(uv), valid, TC, dataclasses.replace(TCFG.pnp, seed=123), t=torch.tensor(5))
     assert bool(r.ok) and int(r.n_inliers) >= 150
 
 

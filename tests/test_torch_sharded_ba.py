@@ -171,16 +171,16 @@ def _tracked_state(n_frames=4):
 def test_window_ba_one_rank_matches_refine_state(mesh):
     state = _tracked_state()
     wba = WindowBA(TCFG, mesh=mesh)
-    assert wba.ready(state)
-    got, stats = wba.refine(state)
+    assert wba.ready(4) and not wba.ready(3)
+    got, stats = wba.refine(state, 4)
     want = refine_state(state, TCFG)
     assert int(stats["n_points"]) >= 8 and int(stats["n_obs"]) > 0
     np.testing.assert_allclose(n(got.win_T_cw), n(want.win_T_cw), rtol=0, atol=1e-6)
     np.testing.assert_allclose(n(got.map_Xw), n(want.map_Xw), rtol=0, atol=1e-5)
-    assert got.frame_idx == want.frame_idx and torch.equal(got.map_uid, want.map_uid)
+    assert torch.equal(got.frame_idx, want.frame_idx) and torch.equal(got.map_uid, want.map_uid)
     # not ready: the state passes through
     early = _tracked_state(2)
-    assert wba.refine(early)[0] is early
+    assert wba.refine(early, 2)[0] is early
 
 
 def _frames(count):

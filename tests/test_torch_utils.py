@@ -34,7 +34,7 @@ def _random_state(cfg, seed=0):
     """A port state with every field filled from a seeded draw."""
     rng = np.random.RandomState(seed)
     s = init_state(cfg, "cpu")
-    out = {"frame_idx": 6}
+    out = {"frame_idx": torch.tensor(6, dtype=torch.int32)}
     for name, v in s._asdict().items():
         if name == "frame_idx":
             continue
@@ -54,7 +54,7 @@ def test_checkpoint_round_trip(tmp_path):
     TC.save_state(p, state)
     assert os.listdir(tmp_path) == ["ckpt.npz"]  # written through .tmp, then renamed
     back = TC.load_state(p, init_state(cfg, "cpu"))
-    assert back.frame_idx == 6 and isinstance(back.frame_idx, int)
+    assert back.frame_idx.shape == () and back.frame_idx.dtype == torch.int32 and int(back.frame_idx) == 6
     for name in VOState._fields[1:]:
         got, want = getattr(back, name), getattr(state, name)
         assert got.dtype == want.dtype and got.device == want.device
@@ -112,7 +112,7 @@ def test_jax_written_checkpoint_loads_into_the_port(tmp_path):
     p = str(tmp_path / "jax.npz")
     JC.save_state(p, sj)
     back = TC.load_state(p, init_state(cfg_t, "cpu"))
-    assert back.frame_idx == 9 and isinstance(back.frame_idx, int)
+    assert back.frame_idx.shape == () and back.frame_idx.dtype == torch.int32 and int(back.frame_idx) == 9
     for name in VOState._fields[1:]:
         want = np.asarray(fields[name])
         if want.dtype == np.uint32:

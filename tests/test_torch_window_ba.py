@@ -117,8 +117,10 @@ def test_refine_state_matches_jax(jax_states, frame):
 
 def test_refine_state_passes_through_before_the_window_is_full(jax_states):
     pre, _ = jax_states
-    st = interop.state_from_numpy(pre[WIN - 1], "cpu")._replace(frame_idx=WIN - 2)
-    assert TW.refine_state(st, TCFG) is st
+    st = interop.state_from_numpy(pre[WIN - 1], "cpu")._replace(frame_idx=torch.tensor(WIN - 2, dtype=torch.int32))
+    got = TW.refine_state(st, TCFG)
+    for name, x in st._asdict().items():
+        assert torch.equal(getattr(got, name), x), name
 
 
 def test_refine_state_keeps_the_state_when_too_few_landmarks(jax_states):
