@@ -45,9 +45,12 @@ Phases, each of which raises (exit code != 0) when it fails:
    "volume" call launches;
 12. the data-parallel tracker (``parallel/dp_tracker``) at B = 1, 2 and 4
    streams on the card, each on its own CUDA stream, on offset copies of
-   the scene with staggered starts: exact launch counts, ground truth,
-   every stream bit for bit its own single-stream run, no host sync in a
-   step, frames/s, ms a frame per stream and the device's idle share;
+   the scene with staggered starts, eager and replaying each stream's
+   CUDA graphs in turns (eager, graph, eager, graph): in each run exact
+   launch counts, ground truth, every stream bit for bit its own
+   single-stream run, no host sync in a step, frames/s, ms a step, the
+   device's idle share and kernels a step; under graphs the capture ms and
+   graph pool of a stream;
 13. the landmark-sharded window BA over NCCL at world size 1, in this
    process: the solver against ``ops/local_ba.local_ba`` (F=4, L=2048,
    stereo edges) and ``VOPipeline(ba_mesh=..., local_ba_every=1)``
@@ -58,13 +61,17 @@ Phases, each of which raises (exit code != 0) when it fails:
    ``zoo.KITTI_TINY_V2_CFG`` with the replay-training tool's training lines
    (352x352, 8 images a step, 8 truth slots; smoke frames letterboxed by the
    tool's ``to_net``, truths from their boxes through ``boxes_to_truths``):
-   20 steps on the card, the loss finite at each, the counters, the first 2
-   steps against the CPU (loss and every param, statistic and momentum
-   buffer), no host sync in a step's dispatch, the exported weights against
-   the folded params in ``YoloDetector``; then 5 steps of
-   ``zoo.TINY_V3_CFG`` (the yolo-loss heads) at 416x416, one against the
-   CPU.  Each prints ms a step, images/s, kernels a step, the device's busy
-   share of a profiled step and its conv FLOPs' share of the float32 peak;
+   20 steps on the card, eager and replaying the step's CUDA graph in
+   turns (eager, graph, eager, graph, eager, eager), the loss finite at
+   each, the counters, each graph run as close to an eager run as the
+   eager runs come to each other (bit for bit where they are), the first
+   graph run's first 2 steps against the CPU
+   (loss and every param, statistic and momentum buffer), no host sync in
+   a step's dispatch, the exported weights against the folded params in
+   ``YoloDetector``; then 5 steps of ``zoo.TINY_V3_CFG`` (the yolo-loss
+   heads) at 416x416 the same way, one against the CPU.  Each run prints
+   ms a step, images/s, kernels a step, the device's busy share of a
+   profiled step and its conv FLOPs' share of the float32 peak;
 16. checkpoint and resume on the card: the sparse path for 10 frames,
    ``utils/checkpoint.save_state``, ``load_state`` into a fresh pipeline
    that tracks frames 10-19, bit for bit the first path's poses; one frame
@@ -98,7 +105,9 @@ Phases, each of which raises (exit code != 0) when it fails:
    of every frame and the final ``VOState``) with the same launch counts;
    each turn's median and p90 host ms/frame, the graphs' capture ms and
    pool MiB, three profiled frames of each kind (device busy ms, idle
-   share, kernels a frame) and a replaying frame under sync debug mode.
+   share, kernels a frame; frame t-1's readback waits on its own event,
+   so the host queues frame t+1 while the device runs frame t) and a
+   replaying frame under sync debug mode.
 
 Each kernel's line entry carries its time and its plain version's (CUDA
 events, wrapper included; for the two BA builds beside ``step_ms``, a
@@ -121,6 +130,7 @@ with an error before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -168,6 +178,8 @@ TRAIN_TIMED_FROM = 5  # its ms a step: CUDA-event median over steps 5-19
 N_TRAIN_CPU_STEPS = 2  # the first steps again on the host CPU
 N_V3_STEPS = 5        # tiny_v3 (the yolo-loss heads) steps on the card
 N_V3_CPU_STEPS = 1
+TRAIN_START_BEFORE = 3  # every run starts 3 steps short of the end of the lr burn-in and of 12800 images seen
+N_DET_TRAIN_STEPS = 6   # steps of the eager and graph runs under cuDNN's deterministic algorithms
 TRAIN_BATCH = 8       # images a step, as the replay-training tool feeds them ([net] batch stays 1)
 N_TRAIN_POOL = 16     # letterboxed smoke frames the batches cycle through
 # card vs CPU at full width: the loss rtol 1e-5; each param, statistic and
@@ -1112,7 +1124,7 @@ def drive_online(cfg, dev, det, kernels: dict, expected: dict, slice_steady, car
     frame = FrameInput(*(torch.from_numpy(a).to(dev) for a in last[1:3]), boxes, valid)
     no_sync("one online track_step with pending detections", lambda: track_step(pipe.state, frame, cfg))
     held = []
-    finalize, pipe._finalize = pipe._finalize, lambda out, ts: held.append((out, ts))
+    finalize, pipe._finalize = pipe._finalize, lambda *item: held.append(item)
     no_sync("one online process_frame (stale boxes awaited, detection queued on the side stream)",
             lambda: pipe.process_frame(last[1], last[2], None, None, last[5]))
     pipe._finalize = finalize
@@ -1243,14 +1255,49 @@ def device_busy(fn) -> tuple[float, float, int]:
     return busy / 1e3, wall, sum(e.get("cat") == "kernel" for e in events)
 
 
+def dp_turn(cfg, dev, batch: list, B: int, capture: bool, kernels: dict) -> dict:
+    """One run of the data-parallel tracker over ``batch`` (a FrameInput a
+    step), stream s restarting from a fresh state at step s; the launch
+    counters set to 0 just before it.  -> its step, outputs, final states,
+    the states its last step took, launches and wall seconds over steps
+    DP_TIMED_FROM on."""
+    from stereo_semantic_vo_tpu_torch.engine.state import init_state
+    from stereo_semantic_vo_tpu_torch.parallel.dp_tracker import batched_init_state, make_dp_tracker
+
+    step = make_dp_tracker([dev], cfg, capture=capture)
+    states = batched_init_state(cfg, B, [dev])
+    outs = []
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    for s in range(len(batch)):
+        if s == DP_TIMED_FROM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if 0 < s < B:  # stream s restarts here
+            states[s] = init_state(cfg, dev)
+        prev = states
+        states, out = step(states, batch[s])
+        outs.append(out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"capture": capture, "step": step, "states": states, "prev": prev, "outs": outs, "wall": wall,
+            "launches": {name: k.launches for name, k in kernels.items()}}
+
+
 def drive_dp(cfg, dev, kernels: dict, card: str) -> dict:
-    """The data-parallel tracker at each B of ``DP_BATCHES``: stream b sees
-    the scene's frame t + DP_OFFSET * b and restarts (a fresh state) at
-    step b.  -> the launch counts of its timed runs."""
+    """The data-parallel tracker at each B of ``DP_BATCHES``, eager and
+    replaying each stream's CUDA graphs in turns (eager, graph, eager,
+    graph): stream b sees the scene's frame t + DP_OFFSET * b and restarts
+    (a fresh state) at step b.  Each run: exact launch counts, ground
+    truth, every stream bit for bit its single-stream run, the last step
+    rerun from the states it took (handed out by the step before, so
+    every stream rewinds a step) bit for bit again and with no sync,
+    frames/s, the device's idle share; under graphs the capture ms and
+    pool of each stream.  -> the launch counts of the graph runs."""
     from stereo_semantic_vo_tpu_torch.engine.state import init_state
     from stereo_semantic_vo_tpu_torch.engine.tracker import FrameInput, init_step, track_step
     from stereo_semantic_vo_tpu_torch.io.synthetic import camera_x, two_plane_frame_source
-    from stereo_semantic_vo_tpu_torch.parallel.dp_tracker import batched_init_state, make_dp_tracker
 
     H, W, nb, N = cfg.camera.height, cfg.camera.width, cfg.semantic.max_boxes, N_DP_STEPS
     src = two_plane_frame_source(H, W)
@@ -1263,57 +1310,64 @@ def drive_dp(cfg, dev, kernels: dict, card: str) -> dict:
             batch.append(FrameInput(*(torch.from_numpy(np.stack([im[j] for im in imgs])).to(dev) for j in (0, 1)),
                                     torch.zeros((B, nb, 4), device=dev), torch.zeros((B, nb), dtype=torch.bool,
                                                                                        device=dev)))
-        step = make_dp_tracker([dev], cfg)
-        states = batched_init_state(cfg, B, [dev])
-        outs = []
-        torch.cuda.synchronize()
-        for k in kernels.values():
-            k.launches = 0
-        for s in range(N):
-            if s == DP_TIMED_FROM:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-            if 0 < s < B:  # stream s restarts here
-                states[s] = init_state(cfg, dev)
-            states, out = step(states, batch[s])
-            outs.append(out)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: k.launches for name, k in kernels.items()}
+        # each stream's own single-stream run from its last start
+        singles = []
+        for b in range(B):
+            st, seq = init_state(cfg, dev), []
+            for s in range(b, N):
+                st, o = (init_step if s == b else track_step)(st, FrameInput(*(x[b] for x in batch[s])), cfg)
+                seq.append(o)
+            singles.append(seq)
         tracks = B * N - (2 * B - 1)  # stream 0 inits once, every other stream twice
         expected = {name: 0 for name in kernels}
         expected.update(extract_patches=B * N, keypoint_stereo_costs=B * N, fused_best_match=2 * tracks)
-        check(launches == expected, f"dp B={B}: kernel launches {launches}, expected {expected}")
-        for name, v in launches.items():
-            total[name] += v
-        # ground truth, each stream from its last start; then its own
-        # single-stream run from there, bit for bit
-        poses = torch.stack([o.T_wc for o in outs]).cpu().numpy()  # (N, B, 4, 4)
-        pos_err = rot_err = 0.0
-        for b in range(B):
-            x0 = camera_x(b + offsets[b], cfg.camera.bf, cfg.camera.fx)
-            for s in range(b, N):
-                gt = camera_x(s + offsets[b], cfg.camera.bf, cfg.camera.fx) - x0
-                pos_err = max(pos_err, float(np.linalg.norm(poses[s, b, :3, 3] - [gt, 0.0, 0.0])))
-                rot_err = max(rot_err, rotation_angle(poses[s, b, :3, :3]))
-                check(s == b or bool(outs[s].pnp_ok[b]), f"dp B={B}: stream {b} lost at step {s}")
-            st = init_state(cfg, dev)
-            for s in range(b, N):
-                st, o = (init_step if s == b else track_step)(st, FrameInput(*(x[b] for x in batch[s])), cfg)
-                for name, x in zip(o._fields, o):
-                    check(torch.equal(getattr(outs[s], name)[b], x),
-                          f"dp B={B}: stream {b} step {s} {name} differs from its single-stream run")
-        check(pos_err <= POS_BOUND_M and rot_err <= ROT_BOUND_RAD,
-              f"dp B={B}: error {pos_err:.4f} m / {rot_err:.5f} rad against ground truth")
-        no_sync(f"one dp step at B={B}", lambda: step(states, batch[-1]))
-        busy, wall_p, n_k = device_busy(lambda: [step(states, batch[s]) for s in range(N - 3, N)])
-        timed = N - DP_TIMED_FROM
-        say(f"dp B={B}: {N} steps, streams restarting at steps {list(range(B))}, every stream bit for bit its "
-            f"single-stream run, max error {pos_err:.5f} m / {rot_err:.6f} rad; launches {launches}")
-        say(f"dp B={B}: {B * timed / wall:.3f} frames/s in all, {wall / timed * 1e3:.3f} ms a step (a frame of "
-            f"each stream), over steps {DP_TIMED_FROM}-{N - 1}; under the profiler (3 steps) device busy "
-            f"{busy / 3:.3f} ms a step of {wall_p / 3:.3f} ms, idle {100 * (1 - busy / wall_p):.1f}%, "
-            f"{n_k / 3:.0f} kernels a step; card {card}")
+        lines = []
+        for capture in (False, True, False, True):
+            run = dp_turn(cfg, dev, batch, B, capture, kernels)
+            kind = "graph" if capture else "eager"
+            outs, launches, step = run["outs"], run["launches"], run["step"]
+            check(launches == expected, f"dp B={B} {kind}: kernel launches {launches}, expected {expected}")
+            check(all(sg.capture == capture for sg in step.steps.values()), f"dp B={B} {kind}: capture")
+            if capture:
+                for name, v in launches.items():
+                    total[name] += v
+            poses = torch.stack([o.T_wc for o in outs]).cpu().numpy()  # (N, B, 4, 4)
+            pos_err = rot_err = 0.0
+            for b in range(B):
+                x0 = camera_x(b + offsets[b], cfg.camera.bf, cfg.camera.fx)
+                for s in range(b, N):
+                    gt = camera_x(s + offsets[b], cfg.camera.bf, cfg.camera.fx) - x0
+                    pos_err = max(pos_err, float(np.linalg.norm(poses[s, b, :3, 3] - [gt, 0.0, 0.0])))
+                    rot_err = max(rot_err, rotation_angle(poses[s, b, :3, :3]))
+                    check(s == b or bool(outs[s].pnp_ok[b]), f"dp B={B} {kind}: stream {b} lost at step {s}")
+                    for name, x in zip(singles[b][s - b]._fields, singles[b][s - b]):
+                        check(torch.equal(getattr(outs[s], name)[b], x),
+                              f"dp B={B} {kind}: stream {b} step {s} {name} differs from its single-stream run")
+            check(pos_err <= POS_BOUND_M and rot_err <= ROT_BOUND_RAD,
+                  f"dp B={B} {kind}: error {pos_err:.4f} m / {rot_err:.5f} rad against ground truth")
+            states, again = run["states"], []
+            no_sync(f"one dp step at B={B} ({kind}), every stream rewound a step",
+                    lambda: again.append(step(run["prev"], batch[-1])[1]))
+            for name, x, y in zip(outs[-1]._fields, outs[-1], again[0]):
+                check(torch.equal(x, y), f"dp B={B} {kind}: the last step rerun from the states it took "
+                                         f"differs in {name}")
+            busy, wall_p, n_k = device_busy(lambda: [step(states, batch[s]) for s in range(N - 3, N)])
+            timed, wall = N - DP_TIMED_FROM, run["wall"]
+            graphs = [g for sg in step.steps.values() if sg.capture for g in sg.graphs.values() if g.graph is not None]
+            cap = (f"; capture {sum(g.capture_ms for g in graphs) / B:.1f} ms and graph pool "
+                   f"{sum(g.pool_bytes for g in graphs) / B / 2**20:.1f} MiB a stream" if capture else "")
+            lines.append(f"dp B={B} {kind}: {B * timed / wall:.3f} frames/s in all, {wall / timed * 1e3:.3f} ms a step "
+                         f"(a frame of each stream) over steps {DP_TIMED_FROM}-{N - 1}; under the profiler (3 steps) "
+                         f"device busy {busy / 3:.3f} ms a step of {wall_p / 3:.3f} ms, idle "
+                         f"{100 * (1 - busy / wall_p):.1f}%, {n_k / 3:.0f} kernels a step{cap}; card {card}")
+            del run, outs, step, states
+            torch.cuda.empty_cache()
+        say(f"dp B={B}: {N} steps, streams restarting at steps {list(range(B))}, eager and graph runs in turns, "
+            f"every stream of every run bit for bit its single-stream run and again when rewound a step, max error "
+            f"{pos_err:.5f} m / "
+            f"{rot_err:.6f} rad; launches {launches}")
+        for line in lines:
+            say(line)
     return total
 
 
@@ -1435,7 +1489,7 @@ def compare_trainers(label: str, gpu, cpu) -> tuple[float, float]:
     trainer against the CPU's.  -> the worst leaf's difference over its
     L2 norm, and over its max |CPU| (for the record)."""
     a, b = gpu.state, cpu.state
-    check((a.batch_num, a.seen) == (b.batch_num, b.seen), f"{label}: counters differ")
+    check((int(a.batch_num), int(a.seen)) == (int(b.batch_num), int(b.seen)), f"{label}: counters differ")
     worst_l2, worst_max = 0.0, 0.0
     for tree in ("params", "momentum"):
         for li, leaves in getattr(b, tree).items():
@@ -1451,65 +1505,185 @@ def compare_trainers(label: str, gpu, cpu) -> tuple[float, float]:
     return worst_l2, worst_max
 
 
-def drive_trainer(label: str, cfg, dev, cfg_text: str, n_steps: int, n_cpu: int, card: str):
-    """Train ``cfg_text`` (with the replay tool's training lines) for
-    ``n_steps`` steps of TRAIN_BATCH smoke frames on the card, the first
-    ``n_cpu`` also on the host CPU; check and time them.  -> the trainer."""
-    from torch.utils.flop_counter import FlopCounterMode
+def leaf_spread(a, b) -> tuple[float, str]:
+    """The largest difference between two trainers' params, statistics and
+    momentum, over the leaf's max |a| (0.0: bit for bit).  -> (it, the
+    leaf it is found in)."""
+    worst, where = 0.0, "none"
+    for tree in ("params", "momentum"):
+        for li, leaves in getattr(a, tree).items():
+            for k, x in leaves.items():
+                d = float((x - getattr(b, tree)[li][k]).abs().max())
+                top = float(x.abs().max())
+                if (d / top if top else d) > worst:
+                    worst, where = d / top if top else d, f"{tree} of layer {li} {k} (max |x| {top:.3g})"
+    return worst, where
 
+
+def start_near_burn_in(tr) -> None:
+    """Put ``tr``'s counters TRAIN_START_BEFORE steps short of the end of
+    its learning rate's burn-in and of the region burn-in's 12800 images
+    seen, so that a run's steps cross both and a graph that froze either
+    would show."""
+    from stereo_semantic_vo_tpu_torch.models.yolo_train import BURN_IN_SEEN
+
+    burn_in = int(tr.net_sec.get("burn_in", 0))
+    check(burn_in > TRAIN_START_BEFORE, f"burn_in {burn_in}")
+    tr.load_state(tr.state._replace(batch_num=torch.tensor(burn_in - TRAIN_START_BEFORE, dtype=torch.int32),
+                                    seen=torch.tensor(BURN_IN_SEEN - TRAIN_START_BEFORE * TRAIN_BATCH,
+                                                      dtype=torch.int32)))
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def train_turn(label: str, text: str, dev, pool, n_steps: int, capture: bool, cpu=None, n_cpu: int = 0,
+               near_burn_in: bool = True) -> dict:
+    """``n_steps`` steps of a trainer from seed 0 on the card, its
+    counters put near the burn-ins' ends (``start_near_burn_in``) unless
+    ``near_burn_in`` is False, eager or replaying its step's graph, the
+    first ``n_cpu`` also on ``cpu`` (a trainer on the host CPU, started
+    alike): the losses finite and against the CPU's, no sync in step 3's
+    dispatch.  -> the trainer, its losses, each step's CUDA-event ms and
+    the CPU comparison."""
     from stereo_semantic_vo_tpu_torch.models.yolo_train import YoloTrainer
-    from stereo_semantic_vo_tpu_torch.tools.train_replay_detector import MAX_T, train_cfg
 
-    text = train_cfg(cfg_text)
-    gpu, cpu = YoloTrainer(text, seed=0, device=dev), YoloTrainer(text, seed=0, device="cpu")
-    check(gpu.net_w == gpu.net_h and gpu.batch == 1, f"{label}: net {gpu.net_w}x{gpu.net_h}, batch {gpu.batch}")
-    pool = train_pool(cfg, gpu.net_w, dev)
-    pool_cpu = tuple(a.cpu() for a in pool)
-    check(pool[1].shape[1] == MAX_T and bool(pool[2].any()), f"{label}: no truth in the pool")
-    losses, times, loss_err = [], [], 0.0
+    kind = "graph" if capture else "eager"
+    tr = YoloTrainer(text, seed=0, device=dev, capture=capture)
+    check(tr.capture == capture, f"{label} {kind}: capture {tr.capture}")
+    if near_burn_in:
+        start_near_burn_in(tr)
+    b0, s0 = tr.batch_num, tr.seen
+    pool_cpu = tuple(a.cpu() for a in pool) if cpu is not None else None
+    losses, times, loss_err, leaves = [], [], 0.0, None
     for s in range(n_steps):
         batch = train_batch(pool, s)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         if s == 3:  # one step's dispatch under sync debug mode; its loss is read after
-            no_sync(f"{label}: one train step's dispatch", lambda: losses.append(gpu.step(*batch)[0]))
+            no_sync(f"{label}: one train step's dispatch ({kind})", lambda: losses.append(tr.step(*batch)[0]))
             losses[-1] = float(losses[-1])
         else:
-            losses.append(gpu.train_step(*batch)[0])
+            losses.append(tr.train_step(*batch)[0])
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-        check(math.isfinite(losses[-1]), f"{label}: loss {losses[-1]} at step {s}")
+        check(math.isfinite(losses[-1]), f"{label} {kind}: loss {losses[-1]} at step {s}")
         if s < n_cpu:
             lc = cpu.train_step(*train_batch(pool_cpu, s))[0]
             loss_err = max(loss_err, abs(losses[-1] - lc) / abs(lc))
-            check(loss_err <= TRAIN_LOSS_RTOL, f"{label}: step {s} loss {losses[-1]} on the card, {lc} on the CPU")
+            check(loss_err <= TRAIN_LOSS_RTOL,
+                  f"{label} {kind}: step {s} loss {losses[-1]} on the card, {lc} on the CPU")
             if s == n_cpu - 1:
-                leaf_l2, leaf_max = compare_trainers(label, gpu, cpu)
-    seen, batch_num = gpu.seen, gpu.batch_num
-    check(seen == n_steps * TRAIN_BATCH and batch_num == n_steps,
-          f"{label}: seen {seen}, batch_num {batch_num} after {n_steps} steps")
-    timed = times[TRAIN_TIMED_FROM:] if n_steps > TRAIN_TIMED_FROM + 2 else times[1:]
-    ms = float(np.median(timed))
+                leaves = compare_trainers(label, tr, cpu)
+    check(tr.seen == s0 + n_steps * TRAIN_BATCH and tr.batch_num == b0 + n_steps,
+          f"{label} {kind}: seen {tr.seen}, batch_num {tr.batch_num} after {n_steps} steps from {s0}, {b0}")
+    return {"trainer": tr, "losses": losses, "times": times, "loss_err": loss_err, "leaves": leaves}
+
+
+def graph_against_eager(label: str, eager: list, graph: list) -> tuple[tuple[float, str], tuple[float, str]]:
+    """Each graph run as close to an eager run as the eager runs come to
+    each other, and its losses the eager runs' where those are bit for
+    bit.  -> (the eager runs' largest pairwise difference, the largest
+    distance of a graph run from its nearest eager run), each with its
+    leaf."""
+    spread = max((leaf_spread(a["trainer"].state, b["trainer"].state) for i, a in enumerate(eager)
+                  for b in eager[i + 1:]), key=lambda x: x[0])
+    worst = max((min((leaf_spread(e["trainer"].state, g["trainer"].state) for e in eager), key=lambda x: x[0])
+                 for g in graph), key=lambda x: x[0])
+    check(worst[0] <= spread[0], f"{label}: a graph run lies {worst[0]:.3g} of a leaf's max from the nearest eager "
+                                 f"run ({worst[1]}), the eager runs up to {spread[0]:.3g} from each other")
+    check(all(g["losses"] == eager[0]["losses"] for g in graph) or spread[0] > 0,
+          f"{label}: the graph runs' losses differ from the eager runs'")
+    return spread, worst
+
+
+def drive_trainer(label: str, cfg, dev, cfg_text: str, n_steps: int, n_cpu: int, card: str):
+    """Train ``cfg_text`` (with the replay tool's training lines) for
+    ``n_steps`` steps of TRAIN_BATCH smoke frames on the card, eager and
+    replaying the step's CUDA graph in turns (eager, graph, eager, graph,
+    eager, eager), every run started near the burn-ins' ends
+    (``start_near_burn_in``); before them a graph run of ``n_cpu`` steps
+    from the seed's state, which the host CPU repeats (near the burn-ins'
+    ends the learning rate is near its full value, where at step 0 it is
+    ~0, and the float32 gradients' difference between card and CPU,
+    moved by it, makes step 1's loss differ by ~1e-4 of itself on an
+    H100).  Each graph run as close to an eager run as the eager runs
+    come to each other (their largest pairwise difference; bit for bit
+    where they are); then two eager and two graph runs of
+    N_DET_TRAIN_STEPS steps under cuDNN's deterministic algorithms, where
+    the graph runs equal the eager runs bit for bit if those equal each
+    other; ms a step, images/s, kernels and busy share of each kind.  ->
+    the first graph run's trainer."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from stereo_semantic_vo_tpu_torch.models.yolo_train import YoloTrainer, learning_rate
+    from stereo_semantic_vo_tpu_torch.tools.train_replay_detector import MAX_T, train_cfg
+
+    text = train_cfg(cfg_text)
+    cpu = YoloTrainer(text, seed=0, device="cpu")
+    check(cpu.net_w == cpu.net_h and cpu.batch == 1, f"{label}: net {cpu.net_w}x{cpu.net_h}, batch {cpu.batch}")
+    pool = train_pool(cfg, cpu.net_w, dev)
+    check(pool[1].shape[1] == MAX_T and bool(pool[2].any()), f"{label}: no truth in the pool")
+    ref = train_turn(label, text, dev, pool, n_cpu, True, cpu, n_cpu, near_burn_in=False)
+    turns = [train_turn(label, text, dev, pool, n_steps, capture)
+             for capture in (False, True, False, True, False, False)]
+    eager = [t for t in turns if not t["trainer"].capture]
+    graph = [t for t in turns if t["trainer"].capture]
+    spread, worst = graph_against_eager(label, eager, graph)
+    with cudnn_deterministic():
+        det = [train_turn(f"{label} deterministic", text, dev, pool, N_DET_TRAIN_STEPS, capture)
+               for capture in (False, True, False, True)]
+    det_spread, det_worst = graph_against_eager(f"{label} deterministic", [det[0], det[2]], [det[1], det[3]])
+    gpu = graph[0]["trainer"]
+    leaf_l2, leaf_max = ref["leaves"]
+    b_end = gpu.batch_num
+    lrs = [learning_rate(gpu.net_sec, b) for b in range(b_end - n_steps, b_end)]
     batch = train_batch(pool, 0)
-    train_breakdown(label, gpu, batch, card)
-    n_k, n_c = device_events(lambda: gpu.step(*batch))
-    busy, wall, _ = device_busy(lambda: gpu.train_step(*batch))
     with torch.no_grad(), FlopCounterMode(display=False) as fc:
         gpu.net(batch[0][:1].permute(0, 3, 1, 2).contiguous())
     step_flops = 3.0 * fc.get_total_flops() * TRAIN_BATCH
     bound_ms = step_flops / FP32_FLOP_PER_S * 1e3
-    say(f"{label} training: {n_steps} steps of {TRAIN_BATCH} images {gpu.net_w}x{gpu.net_h} on the card, loss "
-        f"{losses[0]:.3f} -> {losses[-1]:.3f}, finite at every step, seen {seen}, batch_num {batch_num}; "
-        f"first {n_cpu} steps against the CPU: loss rtol {loss_err:.3g} (bound {TRAIN_LOSS_RTOL}), every leaf "
+    say(f"{label} training: {n_steps} steps of {TRAIN_BATCH} images {gpu.net_w}x{gpu.net_h} on the card, eager and "
+        f"graph in turns, loss {graph[0]['losses'][0]:.3f} -> {graph[0]['losses'][-1]:.3f}, finite at every step, "
+        f"from seen "
+        f"{gpu.seen - n_steps * TRAIN_BATCH} and batch_num {b_end - n_steps} to {gpu.seen} and {b_end} (learning "
+        f"rate {lrs[0]:.4g} -> {lrs[-1]:.4g}, the region burn-in on in the first {TRAIN_START_BEFORE} steps); "
+        f"each graph run within {worst[0]:.3g} of a leaf's max of an eager run ({worst[1]}), {len(eager)} eager "
+        f"runs up to {spread[0]:.3g} from each other ({spread[1]}; "
+        f"{'bit for bit' if spread[0] == 0 else 'not bit for bit'}); under cuDNN's deterministic algorithms "
+        f"({N_DET_TRAIN_STEPS} steps, 2 eager and 2 graph runs) the eager runs {det_spread[0]:.3g} apart "
+        f"({det_spread[1]}), each graph run within {det_worst[0]:.3g} of an eager run ({det_worst[1]}); "
+        f"a graph run of {n_cpu} steps from the seed's state against the CPU: loss rtol {ref['loss_err']:.3g} "
+        f"(bound {TRAIN_LOSS_RTOL}), every leaf "
         f"within {leaf_l2:.3g} of its norm (bound {TRAIN_LEAF_L2_RTOL}; the worst element {leaf_max:.3g} of the "
         f"leaf's max)")
-    say(f"{label} training: {ms:.3f} ms a step (CUDA-event median over steps {len(times) - len(timed)}-"
-        f"{n_steps - 1}), {TRAIN_BATCH / ms * 1e3:.1f} images/s, {n_k} kernels and {n_c} copies or fills a step; "
-        f"profiled step: device busy {busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.1f}%, idle "
-        f"{100 * (1 - busy / wall):.1f}%); conv {fc.get_total_flops() / 1e9:.3f} GFLOP an image forward, "
-        f"{step_flops / 1e9:.2f} GFLOP a step (3x forward), bound {bound_ms:.3f} ms at "
-        f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s float32: {100 * bound_ms / ms:.1f}% of the peak; card {card}")
+    for t in turns:
+        tr = t["trainer"]
+        kind = "graph" if tr.capture else "eager"
+        times = t["times"]
+        timed = times[TRAIN_TIMED_FROM:] if n_steps > TRAIN_TIMED_FROM + 2 else times[1:]
+        ms = float(np.median(timed))
+        n_k, n_c = device_events(lambda: tr.step(*batch))
+        busy, wall, _ = device_busy(lambda: tr.train_step(*batch))
+        cap = ""
+        if tr.capture:
+            (g, _), = tr.graphs.values()
+            cap = f"; capture {g.capture_ms:.1f} ms, graph pool {g.pool_bytes / 2**20:.1f} MiB"
+        say(f"{label} training {kind}: {ms:.3f} ms a step (CUDA-event median over steps {len(times) - len(timed)}-"
+            f"{n_steps - 1}), {TRAIN_BATCH / ms * 1e3:.1f} images/s, {n_k} kernels and {n_c} copies or fills a step; "
+            f"profiled step: device busy {busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.1f}%, idle "
+            f"{100 * (1 - busy / wall):.1f}%); conv {fc.get_total_flops() / 1e9:.3f} GFLOP an image forward, "
+            f"{step_flops / 1e9:.2f} GFLOP a step (3x forward), bound {bound_ms:.3f} ms at "
+            f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s float32: {100 * bound_ms / ms:.1f}% of the peak{cap}; card {card}")
+    train_breakdown(label, eager[-1]["trainer"], batch, card)
     return gpu
 
 
@@ -1885,7 +2059,7 @@ def drive_graphs(paths, dev, kernels: dict, card: str) -> dict:
             prof[kind] = (busy / 3, wall_p / 3, n_k / 3)
         pipe = graph[-1][1]
         held = []
-        finalize, pipe._finalize = pipe._finalize, lambda out, ts: held.append((out, ts))
+        finalize, pipe._finalize = pipe._finalize, lambda *item: held.append(item)
         no_sync(f"graphs {label}: one process_frame replaying the step's graphs", lambda: pipe.process_frame(*extra[3]))
         pipe._finalize = finalize
         for item in held:

@@ -4,18 +4,23 @@ reference's ``jax.jit`` programs ``init_step`` and ``track_step``
 ``detect`` (models/yolo.py, captured by engine/pipeline.py).
 
 A :class:`Graph` is one function of fixed buffers.  Its first call runs the
-function eagerly on a side stream and returns that result: the warm-up,
-which builds the kernel library and uploads the cached constants, and
-creates the libraries' handles and workspaces, none of which a capture may
-do.  It then captures the function into a CUDA graph in a memory pool that
-the graphs of one pipeline share; every later call replays the graph and
-returns the captured outputs, which the next replay overwrites.  Graphs
-that share a pool must run one after another, never at once.  A capture
-or a replay that fails raises: nothing falls back to eager dispatch on a
-card.
+function eagerly on its capture stream and returns that result: the
+warm-up, which builds the kernel library and uploads the cached constants,
+and creates the libraries' handles and workspaces, none of which a capture
+may do.  It then captures the function into a CUDA graph in a memory pool;
+every later call replays the graph and returns the captured outputs, which
+the next replay overwrites.  Graphs that share a pool must run one after
+another, never at once.  A pool (:func:`capture_pool`) comes with a
+capture stream of its own, so graphs that may run at once (the streams of
+the dp tracker, detection beside the step, the trainer beside a pipeline)
+hold separate pools and so separate streams as well: the libraries key
+their workspaces (cuBLAS's) by the stream a call is made on, and a
+captured kernel keeps the workspace of its capture stream, so two graphs
+captured on one stream would share it at every replay.  A capture or a
+replay that fails raises: nothing falls back to eager dispatch on a card.
 
 :class:`StepGraphs` holds a pipeline's static ``FrameInput`` and
-``VOState`` buffers and one graph for each of ``init_step``,
+``VOState`` buffers, a pool, and one graph for each of ``init_step``,
 ``track_step`` and ``refine_state``; each copies the new state back into
 the static state inside the graph, so the step's frame counter, ring
 offsets and RANSAC draws (all on the device) advance on every replay.  With
@@ -30,8 +35,9 @@ replay, so the counts stay those of the kernels that ran.
 
 from __future__ import annotations
 
+import gc
 import time
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -59,11 +65,25 @@ def _copy_state(dst: VOState, src: VOState) -> None:
             a.copy_(b)
 
 
+class CapturePool(NamedTuple):
+    """A graph memory pool and the stream its graphs are captured on."""
+
+    handle: tuple
+    stream: torch.cuda.Stream
+
+
+def capture_pool(device: torch.device) -> CapturePool:
+    """A new pool on ``device`` with a capture stream of its own."""
+    with torch.cuda.device(device):
+        return CapturePool(torch.cuda.graph_pool_handle(), torch.cuda.Stream(device))
+
+
 class Graph:
     """``fn()``, a function of fixed buffers on ``device``, run eagerly once
-    and then replayed from a CUDA graph captured in ``pool``."""
+    on ``pool``'s stream and then replayed from a CUDA graph captured
+    there into ``pool``."""
 
-    def __init__(self, fn: Callable, pool, device: torch.device):
+    def __init__(self, fn: Callable, pool: CapturePool, device: torch.device):
         self.fn, self.pool, self.device = fn, pool, device
         self.graph: torch.cuda.CUDAGraph | None = None
         self.outputs = None
@@ -86,7 +106,9 @@ class Graph:
 
     def _warm_up(self):
         cur = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
+        # on the capture stream, so that the libraries create its
+        # workspaces now and not inside the capture
+        side = self.pool.stream
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             out = self.fn()
@@ -103,10 +125,17 @@ class Graph:
         reserved = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
+        # torch.cuda.graph collects garbage before the capture begins; no
+        # collection may run inside it, where freeing another CUDA graph or
+        # event would make a call the capture forbids and invalidate it
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.graph(graph, pool=self.pool.handle, stream=self.pool.stream):
                 self.outputs = self.fn()
         finally:  # nothing ran during the capture
+            if collecting:
+                gc.enable()
             rise = [(e, e.launches - b) for e, b in zip(entries, before) if e.launches != b]
             for e, b in zip(entries, before):
                 e.launches = b
@@ -132,8 +161,7 @@ class StepGraphs:
         if self.device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, got {self.device}")
         self.state = VOState(*(x.clone() for x in state))
-        with torch.cuda.device(self.device):
-            self.pool = torch.cuda.graph_pool_handle()
+        self.pool = capture_pool(self.device)
         self.graphs = {name: Graph(fn, self.pool, self.device) for name, fn in (
             ("init_step", lambda: self._step(init_step)), ("track_step", lambda: self._step(track_step)),
             ("refine_state", self._refine))}

@@ -8,9 +8,13 @@ every N-th frame once the window is full; with a ``ba_mesh``
 (parallel/mesh.py) it is the landmark-sharded ``WindowBA``: every rank runs
 a pipeline on its own device over the same frames, and the refine's solve
 is split over the ranks.  Frame decode runs on a prefetch thread; frames
-are copied to the device from pinned memory without blocking; frame t-1's
-outputs are read back after frame t is dispatched, so the host never
-waits on the step it just queued.
+are copied to the device from pinned memory without blocking.  The
+readback is deferred by one frame: at the end of frame t's dispatch, on
+the main stream after its last step, ``pnp_ok`` and ``T_wc`` are copied
+into one of two pinned host slots without blocking and an event is
+recorded; after dispatching frame t+1 the host waits on frame t's event
+alone and reads the slot.  So the host never waits on the step it just
+queued, and prepares frame t+1 while the device runs frame t.
 
 On a card each frame replays CUDA graphs (engine/graphs.py), the port's
 counterpart of the reference's jitted step: ``init_step`` or
@@ -48,7 +52,7 @@ import torch
 
 from stereo_semantic_vo_tpu_torch.core import lie
 from stereo_semantic_vo_tpu_torch.core.config import VOConfig
-from stereo_semantic_vo_tpu_torch.engine.graphs import Graph, StepGraphs
+from stereo_semantic_vo_tpu_torch.engine.graphs import Graph, StepGraphs, capture_pool
 from stereo_semantic_vo_tpu_torch.engine.state import TrackOutputs, init_state
 from stereo_semantic_vo_tpu_torch.engine.tracker import FrameInput
 from stereo_semantic_vo_tpu_torch.engine.window_ba import WindowBA
@@ -116,7 +120,7 @@ class VOPipeline:
         # max_boxes; a pool of its own, since on the side stream it runs
         # beside the step's graphs
         self._det_graph = (
-            Graph(lambda: self._detections(self.steps.frame.left), torch.cuda.graph_pool_handle(), self.device)
+            Graph(lambda: self._detections(self.steps.frame.left), capture_pool(self.device), self.device)
             if detector is not None and capture else None
         )
         # tracking-lost recovery: reseed the map after N consecutive PnP
@@ -132,8 +136,14 @@ class VOPipeline:
         self.writer = TrajectoryWriter(kitti_path, tum_path)
         self.frame_times: list[float] = []
         self.outputs: list[Any] = []
-        self._pending: tuple[Any, float] | None = None
+        # (device outputs, timestamp, what _finalize reads: (pnp_ok, T_wc, event))
+        self._pending: tuple[Any, float, tuple] | None = None
         self._n_processed = 0
+        # two pinned slots for (pnp_ok, T_wc): frame t writes slot t % 2
+        # while _finalize reads frame t-1's
+        self._host_slots = [
+            (torch.zeros((), dtype=torch.bool).pin_memory(), torch.zeros((4, 4), dtype=torch.float32).pin_memory())
+            for _ in range(2)] if self.device.type == "cuda" else None
 
     @property
     def state(self):
@@ -286,19 +296,35 @@ class VOPipeline:
 
         # one-frame-deferred readback: consume frame t-1 after dispatching t
         prev = self._pending
-        self._pending = (out, timestamp)
+        self._pending = (out, timestamp, self._queue_readback(out))
         if prev is not None:
             self._finalize(*prev)
         self.frame_times.append(time.perf_counter() - t0)
         return out
 
-    def _finalize(self, out, timestamp: float) -> None:
-        """Host-side consumption of a step's outputs (the sync point)."""
-        if bool(out.pnp_ok):
+    def _queue_readback(self, out: TrackOutputs) -> tuple:
+        """Queue the copy of what ``_finalize`` reads to the host: ->
+        (pnp_ok, T_wc, the event after their copy, None on the CPU)."""
+        if self._host_slots is None:
+            return out.pnp_ok, out.T_wc, None
+        ok, T_wc = self._host_slots[self._n_processed % 2]
+        ok.copy_(out.pnp_ok, non_blocking=True)
+        T_wc.copy_(out.T_wc, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return ok, T_wc, done
+
+    def _finalize(self, out, timestamp: float, host: tuple) -> None:
+        """Host-side consumption of a step's outputs: waits for this
+        frame's readback event alone (the sync point)."""
+        ok, T_wc, done = host
+        if done is not None:
+            done.synchronize()
+        if bool(ok):
             self._consecutive_lost = 0
         else:
             self._consecutive_lost += 1
-        self.writer.append(out.T_wc.cpu().numpy(), timestamp)
+        self.writer.append(T_wc.numpy(), timestamp)
         self.outputs.append(out)
 
     def flush(self) -> None:

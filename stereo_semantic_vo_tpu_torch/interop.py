@@ -111,7 +111,10 @@ def train_state_from_numpy(params: Mapping[Any, Mapping[str, Any]], momentum: Ma
     def tree(ps):
         return {int(li): {k: _oihw(k, v, device) for k, v in p.items()} for li, p in ps.items()}
 
-    return TrainState(params=tree(params), momentum=tree(momentum), batch_num=int(batch_num), seen=int(seen))
+    def counter(v) -> torch.Tensor:
+        return torch.tensor(int(v), dtype=torch.int32, device=device)
+
+    return TrainState(params=tree(params), momentum=tree(momentum), batch_num=counter(batch_num), seen=counter(seen))
 
 
 def train_state_to_numpy(state) -> dict[str, Any]:
@@ -129,4 +132,4 @@ def train_state_to_numpy(state) -> dict[str, Any]:
         return out
 
     return {"params": tree(state.params), "momentum": tree(state.momentum),
-            "batch_num": np.int32(state.batch_num), "seen": np.int32(state.seen)}
+            "batch_num": np.int32(int(state.batch_num)), "seen": np.int32(int(state.seen))}

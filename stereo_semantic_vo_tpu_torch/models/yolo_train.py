@@ -14,9 +14,12 @@ convolutional_layer.c update):
 * ``region_loss`` (YOLOv2) and ``yolo_loss`` (YOLOv3) with darknet's
   assignment rules, defined on the activated outputs so that autograd
   applies the exact logistic / softmax Jacobians, as the JAX package does;
-* ``learning_rate``: darknet's policies and burn-in ramp;
+* ``device_learning_rate``: darknet's policies and burn-in ramp as a
+  function of a device counter, and ``learning_rate``, its host value;
 * ``YoloTrainer``: SGD with momentum and conv-weight decay, updated in
-  place under ``no_grad``.
+  place under ``no_grad``; on a card the whole step (forward, losses,
+  ``torch.autograd.grad``, the update and the counters) is one CUDA graph,
+  the counterpart of the reference's ``jax.jit`` of the step.
 
 Four details keep it equal to the JAX package:
 
@@ -27,9 +30,11 @@ Four details keep it equal to the JAX package:
   later truth overwrites an earlier one on the same cell and anchor;
 - the class one-hot compares with an ``arange`` (no ``F.one_hot``, whose
   range check reads the device);
-- ``seen`` and ``batch_num`` are host ints, as ``VOState.frame_idx`` is:
-  the burn-in branch and the learning rate are host decisions, and a step's
-  dispatch reads nothing back.  ``train_step`` reads the loss once.
+- ``seen`` and ``batch_num`` are 0-d int32 device tensors, as the JAX
+  ``TrainState``'s are: the burn-in is a device select and the learning
+  rate a device function of the counter, so a step's dispatch reads
+  nothing back and a captured step advances them on every replay.
+  ``train_step`` reads the loss once.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from stereo_semantic_vo_tpu_torch.core.precision import f32_matmul
+from stereo_semantic_vo_tpu_torch.engine.graphs import Graph, capture_pool
 from stereo_semantic_vo_tpu_torch.io import darknet
 from stereo_semantic_vo_tpu_torch.models.yolo import LEAKY_SLOPE, _conv_same, _maxpool
 
@@ -257,7 +263,8 @@ def region_loss(
 
     feat: (B, A*(5+nc), H, W) raw head map (NCHW).  truths: (B, T, 5)
     [cx, cy, w, h, class] relative; truths_mask (B, T) bool.  seen: images
-    seen so far, a host int (the < 12800 coord burn-in, :255-263).
+    seen so far, a host int or a 0-d device tensor (the < 12800 coord
+    burn-in, :255-263, a device select as in the JAX package).
     anchors: ``anchor_table(sec)`` on feat's device (``YoloTrainNet.anchors``
     holds it there); None copies it there, which waits for the device.
 
@@ -302,12 +309,14 @@ def region_loss(
     best_iou = _best_iou(pred, truths, truths_mask) if T else torch.zeros_like(obj)
     d_obj = torch.where(best_iou > thresh, 0.0, noobject_scale * (0.0 - obj))
 
-    if seen < BURN_IN_SEEN:  # region_layer.c:255-263
-        burn = 0.01
-        d_x, d_y = burn * (0.5 - sx), burn * (0.5 - sy)
-        d_w, d_h = burn * (0.0 - tw), burn * (0.0 - th)  # log(anchor/anchor) = 0
-    else:
-        d_x = d_y = d_w = d_h = torch.zeros_like(sx)
+    # region_layer.c:255-263; a fill, not a copy, for a host int
+    in_burn = seen < BURN_IN_SEEN if isinstance(seen, torch.Tensor) else torch.full((), seen < BURN_IN_SEEN,
+                                                                                      device=dev)
+    burn = 0.01
+    d_x = torch.where(in_burn, burn * (0.5 - sx), 0.0)
+    d_y = torch.where(in_burn, burn * (0.5 - sy), 0.0)
+    d_w = torch.where(in_burn, burn * (0.0 - tw), 0.0)  # log(anchor/anchor) = 0
+    d_h = torch.where(in_burn, burn * (0.0 - th), 0.0)
     d_cls = torch.zeros_like(cls)
 
     bidx = torch.arange(B, device=dev)
@@ -458,40 +467,48 @@ def yolo_loss(
 
 
 def learning_rate(net_sec: dict, batch_num: int) -> float:
-    """Darknet's learning-rate policy at optimizer step ``batch_num``,
-    computed on the host in float32 as the JAX package computes it."""
-    f32 = np.float32
-    lr = f32(net_sec.get("learning_rate", 1e-3))
+    """Darknet's learning-rate policy at optimizer step ``batch_num``, a
+    host float: :func:`device_learning_rate` on the CPU."""
+    return float(device_learning_rate(net_sec, torch.tensor(batch_num, dtype=torch.int32)))
+
+
+def device_learning_rate(net_sec: dict, batch_num: torch.Tensor) -> torch.Tensor:
+    """:func:`learning_rate` as a 0-d float32 tensor on ``batch_num``'s
+    device, a function of the counter there (the JAX package's jittable
+    ``learning_rate``): nothing is read back, so a captured step follows
+    the schedule on every replay."""
+    lr = float(net_sec.get("learning_rate", 1e-3))
     burn_in = int(net_sec.get("burn_in", 0))
-    power = f32(net_sec.get("power", 4))
+    power = float(net_sec.get("power", 4))
     policy = str(net_sec.get("policy", "constant")).strip()
-    b = f32(batch_num)
+    b = batch_num.to(torch.float32)
+    const = torch.full((), lr, dtype=torch.float32, device=b.device)
 
     if policy == "steps":
         steps = net_sec.get("steps", ())
         scales = net_sec.get("scales", ())
         if not isinstance(steps, tuple):
             steps, scales = (steps,), (scales,)
-        rate = lr
+        rate = const
         for s, sc in zip(steps, scales):
-            rate = rate * f32(sc) if b >= f32(s) else rate
+            rate = torch.where(b >= float(s), rate * float(sc), rate)
     elif policy == "step":
-        rate = lr * np.power(f32(net_sec.get("scale", 1.0)), np.floor(b / f32(net_sec.get("step", 1))))
+        rate = lr * torch.pow(float(net_sec.get("scale", 1.0)), torch.floor(b / float(net_sec.get("step", 1))))
     elif policy == "exp":
-        rate = lr * np.power(f32(net_sec.get("gamma", 1.0)), b)
+        rate = lr * torch.pow(float(net_sec.get("gamma", 1.0)), b)
     elif policy == "poly":
-        mb = f32(net_sec.get("max_batches", 1))
-        rate = lr * np.power(np.maximum(f32(1.0) - b / mb, f32(0.0)), power)
+        mb = float(net_sec.get("max_batches", 1))
+        rate = lr * torch.pow(torch.clamp(1.0 - b / mb, min=0.0), power)
     elif policy == "sig":
-        gamma = f32(net_sec.get("gamma", 1.0))
-        step = f32(net_sec.get("step", 1))
-        rate = lr / (f32(1.0) + np.exp(gamma * (b - step)))
+        gamma = float(net_sec.get("gamma", 1.0))
+        step = float(net_sec.get("step", 1))
+        rate = lr / (1.0 + torch.exp(gamma * (b - step)))
     else:  # constant / random (random is for training-time jitter; use lr)
-        rate = lr
+        rate = const
 
-    if burn_in > 0 and b < f32(burn_in):
-        rate = lr * np.power(b / f32(burn_in), power)
-    return float(f32(rate))
+    if burn_in > 0:
+        rate = torch.where(b < burn_in, lr * torch.pow(b / burn_in, power), rate)
+    return rate
 
 
 # --------------------------------------------------------------------------
@@ -502,8 +519,8 @@ def learning_rate(net_sec: dict, batch_num: int) -> float:
 class TrainState(NamedTuple):
     params: dict[int, dict[str, torch.Tensor]]    # {layer: {"w" OIHW, "b"[, "scales", "mean", "var"]}}
     momentum: dict[int, dict[str, torch.Tensor]]  # the trainable leaves' momentum buffers
-    batch_num: int  # optimizer steps (darknet *net.seen / batch)
-    seen: int       # images seen (drives the region burn-in)
+    batch_num: torch.Tensor  # 0-d int32 optimizer steps (darknet *net.seen / batch)
+    seen: torch.Tensor       # 0-d int32 images seen (drives the region burn-in)
 
 
 class YoloTrainer:
@@ -516,10 +533,18 @@ class YoloTrainer:
     variance follow the forward pass.  Weight decay hits conv weights only,
     scaled by the cfg's batch as darknet does (axpy -decay*batch).
     ``device`` defaults to the card; pass ``"cpu"`` to train on the CPU.
+
+    ``capture`` (default: on a card) runs each step as a CUDA graph
+    (engine/graphs.Graph): the first step of a batch shape runs eagerly and
+    captures forward, losses, ``torch.autograd.grad``, the update and the
+    counters into a graph over static input buffers, in a memory pool of
+    the trainer's; later steps of that shape copy their batch into the
+    buffers and replay it.  A capture or a replay that fails raises.
+    ``capture=False`` dispatches the step eagerly; the CPU always does.
     """
 
     def __init__(self, cfg_text: str, weights_bytes: bytes | None = None, seed: int = 0,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", capture: bool | None = None):
         self.sections = darknet.parse_cfg(cfg_text)
         net = self.sections[0]
         self.net_sec = net
@@ -536,8 +561,26 @@ class YoloTrainer:
         self.net = YoloTrainNet(self.sections, raw).to(self.device)
         self.momentum = {li: {k: torch.zeros_like(v) for k, v in self.net.leaves(li).items() if k in TRAINABLE}
                          for li in self.net.conv_layers}
-        self.batch_num = 0
-        self.seen = 0
+        self._batch_num = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._seen = torch.zeros((), dtype=torch.int32, device=self.device)
+        if capture is None:
+            capture = self.device.type == "cuda"
+        if capture and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, got {self.device}")
+        self.capture = capture
+        # batch shapes -> (the step's graph, its static images, truths, mask)
+        self.graphs: dict[tuple, tuple[Graph, tuple[torch.Tensor, ...]]] = {}
+        self._pool = capture_pool(self.device) if capture else None
+
+    @property
+    def batch_num(self) -> int:
+        """Optimizer steps so far (reads the device counter)."""
+        return int(self._batch_num)
+
+    @property
+    def seen(self) -> int:
+        """Images seen so far (reads the device counter)."""
+        return int(self._seen)
 
     @property
     def state(self) -> TrainState:
@@ -545,8 +588,8 @@ class YoloTrainer:
         return TrainState(
             params={li: {k: v.detach().clone() for k, v in self.net.leaves(li).items()} for li in self.net.conv_layers},
             momentum={li: {k: v.clone() for k, v in m.items()} for li, m in self.momentum.items()},
-            batch_num=self.batch_num,
-            seen=self.seen,
+            batch_num=self._batch_num.clone(),
+            seen=self._seen.clone(),
         )
 
     def load_state(self, state: TrainState) -> None:
@@ -557,7 +600,8 @@ class YoloTrainer:
                     v.copy_(state.params[li][k])
                 for k, v in self.momentum[li].items():
                     v.copy_(state.momentum[li][k])
-        self.batch_num, self.seen = int(state.batch_num), int(state.seen)
+            self._batch_num.copy_(torch.as_tensor(state.batch_num, dtype=torch.int32))
+            self._seen.copy_(torch.as_tensor(state.seen, dtype=torch.int32))
 
     def loss(self, x: torch.Tensor, truths: torch.Tensor, truths_mask: torch.Tensor):
         """(B, 3, H, W) input -> (total loss, LossStats over the heads,
@@ -566,7 +610,7 @@ class YoloTrainer:
         total, stats = None, None
         for (sec, feat), anchors in zip(heads, self.net.anchors):
             if sec["type"] == "region":
-                s = region_loss(feat, sec, truths, truths_mask, self.seen, anchors)
+                s = region_loss(feat, sec, truths, truths_mask, self._seen, anchors)
             else:
                 s = yolo_loss(feat, sec, truths, truths_mask, self.net_w, self.net_h, anchors)
             total = s.loss if total is None else total + s.loss
@@ -580,15 +624,31 @@ class YoloTrainer:
         return total, stats, rolling
 
     def step(self, images: torch.Tensor, truths: torch.Tensor, truths_mask: torch.Tensor):
-        """One optimizer step, queued on the device with no readback.
-        -> (loss, LossStats) as device tensors."""
+        """One optimizer step, queued on the device with no readback (under
+        capture, a replay of the batch shape's graph).  -> (loss, LossStats)
+        as device tensors of their own."""
+        if not self.capture:
+            return self._step(images, truths, truths_mask)
+        batch = (images, truths, truths_mask)
+        key = tuple(tuple(x.shape) for x in batch)
+        if key not in self.graphs:
+            static = tuple(torch.empty_like(x, device=self.device) for x in batch)
+            self.graphs[key] = (Graph(lambda: self._step(*static), self._pool, self.device), static)
+        graph, static = self.graphs[key]
+        for dst, x in zip(static, batch):
+            dst.copy_(x)
+        loss, stats = graph()  # the next replay overwrites these
+        return loss.clone(), LossStats(*(x.clone() for x in stats))
+
+    def _step(self, images: torch.Tensor, truths: torch.Tensor, truths_mask: torch.Tensor):
+        """The step's work on the device: forward, losses, gradients, the
+        update of the params, statistics, momentum and counters in place."""
         x = images.permute(0, 3, 1, 2).contiguous()
         leaves = self.net.trainable()
         with f32_matmul():
             loss, stats, rolling = self.loss(x, truths, truths_mask)
             grads = torch.autograd.grad(loss, [p for _, _, p in leaves])
-        lr = learning_rate(self.net_sec, self.batch_num)
-        step_size = float(np.float32(lr) / np.float32(self.batch))
+        step_size = device_learning_rate(self.net_sec, self._batch_num) / self.batch
         decay_w = self.decay * self.batch
         # darknet update (convolutional_layer.c:524-542):
         #   u_t = grad + decay*batch*w + momentum * u_{t-1}
@@ -603,8 +663,8 @@ class YoloTrainer:
             for li, (rm, rv) in rolling.items():  # rolling stats follow the forward pass
                 getattr(self.net, f"mean{li}").copy_(rm)
                 getattr(self.net, f"var{li}").copy_(rv)
-        self.batch_num += 1
-        self.seen += images.shape[0]
+            self._batch_num.add_(1)
+            self._seen.add_(images.shape[0])
         return loss.detach(), LossStats(*(x.detach() for x in stats))
 
     def train_step(self, images: torch.Tensor, truths: torch.Tensor, truths_mask: torch.Tensor):

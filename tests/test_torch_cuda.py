@@ -21,13 +21,17 @@ steered ORB on the card against the CPU: keypoints exact, at most 0.5% of
 the descriptor bits differ (the moments' sums run in another order); the
 volume stereo modes on the card against the CPU and against B2 where the
 strip is not clamped: valid equal, disparity 1e-4 px; the data-parallel
-tracker's streams equal, bit for bit, their single-stream runs; the sharded
+tracker's streams equal, bit for bit, their single-stream runs, and its
+graph runs (a graph pair, a pool and a capture stream a stream) its eager
+runs, a replaying step without a sync; the sharded
 BA at one rank over NCCL equal to ``local_ba`` with the same einsum build,
 and within tests/test_sharded_ba.py's bounds of the B7 build; two ranks
 over NCCL (two cards) within the worker's bounds; three train steps on the
 card against the CPU: loss rtol 1e-4, every param, statistic and momentum
 buffer atol 1e-3 x max|CPU| (cuDNN's forward and backward convolutions sum
-in another order); a detector from the exported weights equal to one from
+in another order); the trainer's step replayed as a CUDA graph equal, bit
+for bit, to eager runs under cuDNN's deterministic algorithms, a replayed
+step without a sync; a detector from the exported weights equal to one from
 the folded params; a pipeline resumed from a checkpoint equal, bit for bit,
 to the uninterrupted run; on chip_smoke.py's mover scene, a step of
 ``run.py --no-semantics``'s configuration on the card against the CPU
@@ -35,7 +39,8 @@ within 1e-3 m and 1e-3 rad, and nothing culled without semantics; the
 pipeline replaying CUDA graphs of its step equal, bit for bit, to its eager
 dispatch (sparse and knob over 8 frames, dense with a refine every frame
 over 5), capturing and replaying without a sync, and raising where a
-captured function reads back."""
+captured function reads back; ``process_frame(t)`` returning long before a
+200 ms sleep queued after frame t's replay ends, the run unchanged."""
 
 import dataclasses
 
@@ -763,7 +768,7 @@ def test_detect_and_an_async_dispatch_read_nothing_back():
     pipe = VOPipeline(cfg, device=dev, detector=det, write_trajectory=False)
     pipe.process_frame(*src(0), None, None, 0.0)
     held = []
-    pipe._finalize = lambda out, ts: held.append(out)
+    pipe._finalize = lambda out, *rest: held.append(out)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -877,10 +882,12 @@ def _dp_frames(dev, ts):
 
 
 def test_dp_streams_equal_single_stream_runs_and_read_nothing_back():
-    """Three streams on one card, each on its own CUDA stream, starting at
-    steps 0, 1, 2 on offset frames: each stream's outputs and state equal,
-    bit for bit, its own init_step / track_step run; a step under sync
-    debug mode raises nothing."""
+    """Three streams on one card, each replaying its graphs on its own CUDA
+    stream, starting at steps 0, 1, 2 on offset frames: each stream's
+    outputs and state equal, bit for bit, its own init_step / track_step
+    run; the last step, which only replays (each stream captured its
+    init and track graphs in the steps before), raises nothing under sync
+    debug mode."""
     from stereo_semantic_vo_tpu_torch.parallel import dp_tracker as TDP
 
     dev = cuda_device()
@@ -919,6 +926,103 @@ def test_dp_streams_equal_single_stream_runs_and_read_nothing_back():
             y = getattr(states[b], name)
             assert torch.equal(x, y), (b, name)
     assert all(bool(outs[-1].pnp_ok[b]) for b in range(B))
+    assert [step.steps[b].graphs["track_step"].replays for b in range(B)] == [2, 1, 1]
+
+
+def _dp_run(cfg, dev, capture, steps, starts):
+    """The dp tracker over ``steps`` steps, stream b restarting from a
+    fresh state at ``starts[b]`` on the frames s + 2b.  -> (step, outputs
+    of each step, final states, launches of each kernel)."""
+    from stereo_semantic_vo_tpu_torch.kernels import launch_counters
+    from stereo_semantic_vo_tpu_torch.parallel import dp_tracker as TDP
+
+    counters = launch_counters()
+    before = {name: k.launches for name, k in counters.items()}
+    step = TDP.make_dp_tracker([dev], cfg, capture=capture)
+    states = TDP.batched_init_state(cfg, len(starts), [dev])
+    outs = []
+    for s in range(steps):
+        frames = _dp_frames(dev, [s + 2 * b for b in range(len(starts))])
+        for b, start in enumerate(starts):
+            if s == start and s > 0:
+                states[b] = init_state(cfg, dev)
+        if s == steps - 1 and capture:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            states, out = step(states, frames)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs.append(out)
+    torch.cuda.synchronize()
+    return step, outs, states, {name: k.launches - before[name] for name, k in counters.items()}
+
+
+def test_dp_graphs_equal_eager_and_single_stream_runs():
+    """Two streams, stream 1 restarting at step 1 (its init and track
+    graphs captured a step after stream 0's): the graph run equals the
+    eager run (``capture=False``) and each stream's own single-stream run
+    bit for bit, with the same kernel launches; a replayed step raises
+    nothing under sync debug mode; each stream holds a pool of its own."""
+    dev = cuda_device()
+    cfg = dataclasses.replace(VOConfig.kitti(), camera=CameraConfig(width=W, height=H))
+    steps, starts = 4, (0, 1)
+    eager = _dp_run(cfg, dev, False, steps, starts)
+    graph = _dp_run(cfg, dev, True, steps, starts)
+    assert graph[3] == eager[3] and graph[3]["extract_patches"] == 2 * steps
+    sg = graph[0].steps
+    assert all(sg[b].capture for b in (0, 1)) and not any(eager[0].steps[b].capture for b in (0, 1))
+    assert sg[0].pool != sg[1].pool
+    assert [sg[b].graphs["track_step"].replays for b in (0, 1)] == [2, 1]
+    for s, (a, b) in enumerate(zip(eager[1], graph[1])):
+        for name, x, y in zip(a._fields, a, b):
+            assert torch.equal(x, y), (s, name)
+    for b in (0, 1):
+        for name, x, y in zip(eager[2][b]._fields, eager[2][b], graph[2][b]):
+            assert torch.equal(x, y), (b, name)
+        st = init_state(cfg, dev)
+        for s in range(starts[b], steps):
+            fr = _dp_frames(dev, [s + 2 * i for i in range(2)])
+            st, o = (TT.init_step if s == starts[b] else TT.track_step)(st, TT.FrameInput(*(x[b] for x in fr)), cfg)
+            for name, x in zip(o._fields, o):
+                assert torch.equal(getattr(graph[1][s], name)[b], x), (b, s, name)
+        for name, x, y in zip(st._fields, st, graph[2][b]):
+            assert torch.equal(x, y), (b, name)
+
+
+@pytest.mark.parametrize("capture", [False, True], ids=["eager", "graph"])
+def test_dp_rewinds_a_stream_from_a_state_it_handed_out(capture):
+    """Two streams over four steps; at step 3 stream 0 is given back the
+    very state object the tracker handed out after step 1.  That state
+    keeps step 1's values through the later steps, and step 3 tracks from
+    it: its outputs and state equal, bit for bit, an eager track_step from
+    a copy of it, while stream 1 runs on."""
+    from stereo_semantic_vo_tpu_torch.engine.state import VOState
+    from stereo_semantic_vo_tpu_torch.parallel import dp_tracker as TDP
+
+    dev = cuda_device()
+    cfg = dataclasses.replace(VOConfig.kitti(), camera=CameraConfig(width=W, height=H))
+    step = TDP.make_dp_tracker([dev], cfg, capture=capture)
+    states = TDP.batched_init_state(cfg, 2, [dev])
+    outs = []
+    for s in range(4):
+        if s == 3:
+            states = [kept, states[1]]
+        states, out = step(states, _dp_frames(dev, [s, s + 2]))
+        outs.append(out)
+        if s == 1:
+            kept = states[0]
+            snap = VOState(*(x.clone() for x in kept))
+    torch.cuda.synchronize()
+    assert all(sg.capture == capture for sg in step.steps.values())
+    for name, x, y in zip(snap._fields, snap, kept):
+        assert torch.equal(x, y), name
+    want, o = TT.track_step(snap, TT.FrameInput(*(x[0] for x in _dp_frames(dev, [3, 5]))), cfg)
+    for name, x in zip(o._fields, o):
+        assert torch.equal(getattr(outs[3], name)[0], x), name
+    for name, x, y in zip(want._fields, want, states[0]):
+        assert torch.equal(x, y), name
+    assert (int(states[0].frame_idx), int(states[1].frame_idx)) == (2, 3)
 
 
 def _ba_free_port() -> int:
@@ -1168,6 +1272,45 @@ def test_train_step_reads_nothing_back():
             torch.cuda.set_sync_debug_mode("default")
         assert loss.is_cuda and stats.count.is_cuda and bool(torch.isfinite(loss))
         assert (tr.batch_num, tr.seen) == (2, 8)
+        (graph, _), = tr.graphs.values()
+        assert tr.capture and graph.replays == 1
+
+
+def _same_leaves(a, b) -> bool:
+    """Two trainers' params, statistics and momentum, bit for bit."""
+    return all(torch.equal(x, getattr(b, tree)[li][k]) for tree in ("params", "momentum")
+               for li, leaves in getattr(a, tree).items() for k, x in leaves.items())
+
+
+@pytest.mark.parametrize("cfg", [TRAIN_CFG, YOLO_TRAIN_CFG], ids=["region", "yolo"])
+def test_train_graph_equals_eager(cfg, monkeypatch):
+    """Five steps replaying the step's CUDA graph against eager runs
+    (``capture=False``) from the same state, started 8 images short of
+    seen = 12800 and 2 steps short of the end of the learning rate's
+    burn-in, with cuDNN held to its deterministic algorithms (its default
+    choice may sum the weight gradients with atomics, and then no two
+    eager runs agree): the counters equal, two eager runs equal each
+    other, and two graph runs equal them, bit for bit (losses and every
+    param, statistic and momentum buffer)."""
+    from stereo_semantic_vo_tpu_torch.models.yolo_train import YoloTrainer
+
+    dev = cuda_device()
+    text = cfg.replace("burn_in=0", "burn_in=3")
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    runs = []
+    for capture in (False, True, False, True):
+        tr = YoloTrainer(text, seed=2, device=dev, capture=capture)
+        tr.load_state(tr.state._replace(batch_num=torch.tensor(1, dtype=torch.int32),
+                                        seen=torch.tensor(12792, dtype=torch.int32)))
+        losses = [tr.train_step(*_train_batch(dev, s))[0] for s in range(5)]
+        runs.append((tr, losses))
+    assert [tr.capture for tr, _ in runs] == [False, True, False, True]
+    assert all(len(tr.graphs) == 1 for tr, _ in runs[1::2])
+    assert {(tr.batch_num, tr.seen) for tr, _ in runs} == {(6, 12812)}
+    for tr, losses in runs[1:]:
+        assert losses == runs[0][1]
+        assert _same_leaves(runs[0][0].state, tr.state)
 
 
 def test_exported_weights_detect_as_the_folded_params_on_the_card():
@@ -1322,7 +1465,7 @@ def test_graph_capture_and_replay_read_nothing_back():
     cfg = _graph_cfg("sparse")
     pipe = VOPipeline(cfg, device=dev, write_trajectory=False)
     held = []
-    pipe._finalize = lambda out, ts: held.append(out)
+    pipe._finalize = lambda out, *rest: held.append(out)
     frames = list(_graph_frames(cfg, 4))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1335,6 +1478,53 @@ def test_graph_capture_and_replay_read_nothing_back():
     assert all(bool(o.pnp_ok) for o in held) and int(pipe.state.frame_idx) == 3
 
 
+SLEEP_CYCLES = 400_000_000  # ~200 ms of the main stream at the H100's 1.98 GHz
+
+
+def test_process_frame_does_not_wait_on_the_frame_it_queued(monkeypatch):
+    """A ~200 ms ``torch.cuda._sleep`` on the main stream after frame 4's
+    replay: ``process_frame(4)`` returns long before it ends (it waits on
+    frame 3's readback event alone), ``process_frame(5)`` waits for it (it
+    reads frame 4), and the run equals one without the sleep bit for
+    bit."""
+    import time
+
+    dev = cuda_device()
+    cfg = _graph_cfg("sparse")
+    frames = list(_graph_frames(cfg, 7))
+    plain = VOPipeline(cfg, device=dev, write_trajectory=False)
+    for f in frames:
+        plain.process_frame(*f)
+    plain.flush()
+    pipe = VOPipeline(cfg, device=dev, write_trajectory=False)
+    for f in frames[:4]:
+        pipe.process_frame(*f)
+    track = pipe.steps.track
+
+    def slow_track():
+        out = track()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        return out
+
+    torch.cuda.synchronize()
+    monkeypatch.setattr(pipe.steps, "track", slow_track)
+    t0 = time.perf_counter()
+    pipe.process_frame(*frames[4])
+    queued = time.perf_counter() - t0
+    monkeypatch.setattr(pipe.steps, "track", track)
+    t0 = time.perf_counter()
+    pipe.process_frame(*frames[5])
+    waited = time.perf_counter() - t0
+    pipe.process_frame(*frames[6])
+    pipe.flush()
+    assert queued < 0.05 and waited > 0.1, (queued, waited)
+    assert len(pipe.outputs) == len(plain.outputs) == 7
+    for a, b in zip(plain.outputs, pipe.outputs):
+        for name, x, y in zip(a._fields, a, b):
+            assert torch.equal(x, y), name
+    assert np.array_equal(np.stack(plain.writer.poses), np.stack(pipe.writer.poses))
+
+
 def test_a_capture_that_hits_a_forbidden_op_raises(monkeypatch):
     """A host read inside a captured function raises at its capture; the
     pipeline does not fall back to eager dispatch."""
@@ -1342,7 +1532,7 @@ def test_a_capture_that_hits_a_forbidden_op_raises(monkeypatch):
 
     dev = cuda_device()
     x = torch.ones(4, device=dev)
-    g = TGR.Graph(lambda: x * float(x.sum()), torch.cuda.graph_pool_handle(), dev)
+    g = TGR.Graph(lambda: x * float(x.sum()), TGR.capture_pool(dev), dev)
     with pytest.raises(RuntimeError):
         g()
     assert g.graph is None
