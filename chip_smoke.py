@@ -55,8 +55,17 @@ Phases, each of which raises (exit code != 0) when it fails:
    process: the solver against ``ops/local_ba.local_ba`` (F=4, L=2048,
    stereo edges) and ``VOPipeline(ba_mesh=..., local_ba_every=1)``
    against the pipeline without a mesh, no host sync in a sharded refine;
-14. the replicated detector (``parallel/semantic_head``) on two frames
-   against ``YoloDetector.detect`` of each;
+   then the solver and the mesh pipeline eager and replaying their CUDA
+   graphs (the NCCL collectives captured inside) in turns (eager, graph,
+   eager, graph): each graph run bit for bit the eager runs, the refine
+   graph's replays counted, no host sync in a replay, ms a solve and a
+   refine in each mode, kernels a solve and a refine, capture ms and pool
+   MiB;
+14. the replicated detector (``parallel/semantic_head``, one batched
+   program a device, a CUDA graph on the card): a replayed batch of two
+   frames against ``YoloDetector.detect`` of each; batches of 2 and 4
+   frames eager and replaying in turns, bit for bit, no host sync in a
+   replay, ms and kernels a batch in each mode, capture ms and pool MiB;
 15. detector training at full width: ``models/yolo_train.YoloTrainer`` on
    ``zoo.KITTI_TINY_V2_CFG`` with the replay-training tool's training lines
    (352x352, 8 images a step, 8 truth slots; smoke frames letterboxed by the
@@ -132,6 +141,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1373,15 +1383,15 @@ def drive_dp(cfg, dev, kernels: dict, card: str) -> dict:
 
 def drive_sharded(cfg, dev, kernels: dict, expected: dict, card: str) -> dict:
     """The landmark-sharded window BA over NCCL at world size 1, in this
-    process.  -> the launch counts of the pipeline with a mesh."""
+    process: the runner against ``local_ba``, then the runner and the mesh
+    pipeline eager and replaying their CUDA graphs (the collectives inside
+    the capture) in turns.  -> the launch counts of the pipeline with a
+    mesh."""
     import socket
 
     import torch.distributed as dist
 
-    from stereo_semantic_vo_tpu_torch.core.camera import Camera
-    from stereo_semantic_vo_tpu_torch.ops.local_ba import local_ba
     from stereo_semantic_vo_tpu_torch.parallel.mesh import make_mesh
-    from stereo_semantic_vo_tpu_torch.parallel.sharded_ba import make_sharded_local_ba
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -1393,47 +1403,125 @@ def drive_sharded(cfg, dev, kernels: dict, expected: dict, card: str) -> dict:
     try:
         mesh = make_mesh(device=dev.type)
         check(mesh.device == dev and mesh.size == 1, f"mesh {mesh}")
-        cam = Camera.from_config(cfg.camera, dev)
-        poses, X, obs, mask, ur, rm = local_ba_problem(cfg.camera, dev, cfg.window.window_frames,
-                                                       cfg.window.max_map_points)
-        X0, pv = X + 0.1, torch.ones(X.shape[0], dtype=torch.bool, device=dev)
-        run = make_sharded_local_ba(mesh, cam, cfg.ba, stereo_edges=True)
-        got = run(poses, X0, obs, mask, pv, ur, rm)
-        want = local_ba(poses, X0, obs, mask, pv, cam, cfg.ba, obs_ur=ur, obs_r_mask=rm)
-        dcost = abs(float(got.cost) - float(want.cost)) / abs(float(want.cost))
-        dpose = float((got.poses - want.poses).abs().max())
-        dpt = float(torch.median(torch.linalg.vector_norm(got.points - want.points, dim=1)))
-        check(dcost <= SHARDED_COST_RTOL and dpose <= SHARDED_POSE_ATOL and dpt < SHARDED_POINT_MEDIAN_M,
-              f"sharded BA vs local_ba: cost rtol {dcost}, poses {dpose}, median point {dpt} m")
-        no_sync("one sharded solve over NCCL", lambda: run(poses, X0, obs, mask, pv, ur, rm))
-        ms = median_ms(lambda: run(poses, X0, obs, mask, pv, ur, rm), reps=10, warmup=2)
-        ms_local = median_ms(lambda: local_ba(poses, X0, obs, mask, pv, cam, cfg.ba, obs_ur=ur, obs_r_mask=rm),
-                             reps=10, warmup=2)
-        say(f"sharded BA over {backend}, world size 1: F=4, L=2048, stereo edges against local_ba (B7 build): cost "
-            f"rtol {dcost:.3g}, poses max abs {dpose:.3g}, median point {dpt:.3g} m (bounds {SHARDED_COST_RTOL}, "
-            f"{SHARDED_POSE_ATOL}, {SHARDED_POINT_MEDIAN_M}); {ms:.3f} ms a solve against {ms_local:.3f} ms")
+        sharded_solve_turns(cfg, dev, mesh, card)
         # the pipeline with the mesh, against the same pipeline without one
         n_f = N_SHARDED_FRAMES
         pipe, _, poses_m, launches = drive_path("sharded window BA", cfg, dev, n_f, 1, kernels, expected,
                                                 ba_mesh=mesh)
-        check(pipe.window_ba is not None, "the pipeline did not take the mesh")
+        check(pipe.window_ba is not None and pipe.steps.window_ba is pipe.window_ba, "the pipeline did not take the mesh")
         ref, _ = run_slice(cfg, dev, n_f, local_ba_every=1)
         poses_r = np.stack([o.T_wc.cpu().numpy() for o in ref.outputs])
         dpos = float(np.abs(poses_m[:, :3, 3] - poses_r[:, :3, 3]).max())
         drot = max(rotation_angle(a[:3, :3].T @ b[:3, :3]) for a, b in zip(poses_m, poses_r))
         check(dpos <= CPU_POS_TOL_M and drot <= CPU_ROT_TOL_RAD,
               f"pipeline with a mesh vs without: poses differ by {dpos} m / {drot} rad")
-        no_sync("one sharded refine", lambda: pipe.window_ba.refine(pipe.state, pipe._n_processed))
+        no_sync("one eager sharded refine", lambda: pipe.window_ba.refine(pipe.state, pipe._n_processed))
         say(f"VOPipeline(ba_mesh=..., local_ba_every=1) vs no mesh: {n_f} frames, {n_f - 3} refines, max pose "
             f"difference {dpos:.3g} m, {drot:.3g} rad; card {card}")
+        del pipe, ref
+        mesh_pipeline_turns(cfg, dev, mesh, kernels, card)
     finally:
+        gc.collect()  # the graphs that hold the group's collectives go before the group
+        torch.cuda.synchronize()
         dist.destroy_process_group()
     return launches
 
 
-def compare_replicated_detector(cfg, dev, det) -> None:
-    """Two frames through the replicated detector on the card's data axis
-    against ``det.detect`` of each."""
+def sharded_solve_turns(cfg, dev, mesh, card: str) -> None:
+    """The sharded runner on ``local_ba_problem`` against ``local_ba`` (B7
+    build), then eager and replaying its graph in turns, each solve bit for
+    bit the first eager one; ms, kernels, capture ms and pool, no sync in a
+    replay."""
+    from stereo_semantic_vo_tpu_torch.core.camera import Camera
+    from stereo_semantic_vo_tpu_torch.ops.local_ba import local_ba
+    from stereo_semantic_vo_tpu_torch.parallel.sharded_ba import make_sharded_local_ba
+
+    cam = Camera.from_config(cfg.camera, dev)
+    poses, X, obs, mask, ur, rm = local_ba_problem(cfg.camera, dev, cfg.window.window_frames,
+                                                   cfg.window.max_map_points)
+    X0, pv = X + 0.1, torch.ones(X.shape[0], dtype=torch.bool, device=dev)
+    args = (poses, X0, obs, mask, pv, ur, rm)
+    run = make_sharded_local_ba(mesh, cam, cfg.ba, stereo_edges=True)
+    got = run(*args)
+    want = local_ba(poses, X0, obs, mask, pv, cam, cfg.ba, obs_ur=ur, obs_r_mask=rm)
+    dcost = abs(float(got.cost) - float(want.cost)) / abs(float(want.cost))
+    dpose = float((got.poses - want.poses).abs().max())
+    dpt = float(torch.median(torch.linalg.vector_norm(got.points - want.points, dim=1)))
+    check(dcost <= SHARDED_COST_RTOL and dpose <= SHARDED_POSE_ATOL and dpt < SHARDED_POINT_MEDIAN_M,
+          f"sharded BA vs local_ba: cost rtol {dcost}, poses {dpose}, median point {dpt} m")
+    ms_local = median_ms(lambda: local_ba(poses, X0, obs, mask, pv, cam, cfg.ba, obs_ur=ur, obs_r_mask=rm),
+                         reps=10, warmup=2)
+    say(f"sharded BA over NCCL, world size {mesh.size}: F=4, L=2048, stereo edges against local_ba (B7 build): cost "
+        f"rtol {dcost:.3g}, poses max abs {dpose:.3g}, median point {dpt:.3g} m (bounds {SHARDED_COST_RTOL}, "
+        f"{SHARDED_POSE_ATOL}, {SHARDED_POINT_MEDIAN_M}); local_ba {ms_local:.3f} ms a solve")
+    # the runner eager and replaying its graph, in turns
+    turns = []
+    for capture in (False, True, False, True):
+        r = make_sharded_local_ba(mesh, cam, cfg.ba, stereo_edges=True, capture=capture)
+        out = r(*args) if not capture else (r(*args), r(*args))[1]  # a graph's first call warms up and captures
+        turns.append((capture, r, out, median_ms(lambda: r(*args), reps=10, warmup=2)))
+    for capture, r, out, _ in turns:
+        check(all(torch.equal(a, b) for a, b in zip(out, turns[0][2])),
+              f"sharded solve {'graph' if capture else 'eager'}: differs from the first eager solve")
+    graph_run = turns[-1][1]
+    (g, _), = graph_run.graphs.values()
+    check(g.replays > 0 and all(torch.equal(a, b) for a, b in zip(turns[-1][2], got)),
+          "sharded solve: the graph did not replay, or differs from the solve checked against local_ba")
+    no_sync("one replay of the sharded solve's graph (NCCL all-reduces inside)", lambda: graph_run(*args))
+    k_e, c_e = device_events(lambda: turns[-2][1](*args))
+    k_g, c_g = device_events(lambda: graph_run(*args))
+    say(f"sharded solve eager and graph in turns, each bit for bit the first eager solve: ms a solve (CUDA "
+        "events, median of 10) " + ", ".join(f"{'graph' if c else 'eager'} {ms:.3f}" for c, _, _, ms in turns)
+        + f"; kernels and copies a solve eager {k_e} + {c_e}, graph {k_g} + {c_g}; capture {g.capture_ms:.1f} "
+        f"ms, graph pool {g.pool_bytes / 2**20:.1f} MiB, {g.replays} replays; card {card}")
+
+
+def mesh_pipeline_turns(cfg, dev, mesh, kernels: dict, card: str) -> None:
+    """``VOPipeline(ba_mesh=..., local_ba_every=1)`` eager and replaying its
+    graphs (the refine's holds the collectives), in turns: each graph run
+    bit for bit the eager runs, with their launches and a refine graph
+    replayed on every refine frame after the first; then ms a refine (10
+    more on each run's last state), kernels a refine, capture ms and pool
+    MiB, and a replayed refine without a sync."""
+    n_f, win = N_SHARDED_FRAMES, cfg.window.window_frames
+    turns = []
+    for capture in (False, True, False, True):
+        for k in kernels.values():
+            k.launches = 0
+        pipe, _ = run_slice(cfg, dev, n_f, local_ba_every=1, ba_mesh=mesh, capture=capture)
+        check(pipe.steps.capture == capture, f"mesh pipeline: capture {pipe.steps.capture}")
+        steady = np.array(pipe.frame_times[win:]) * 1e3
+        turns.append((capture, pipe, {name: k.launches for name, k in kernels.items()}, float(np.median(steady))))
+    eager = [t for t in turns if not t[0]]
+    check(same_run(eager[0][1], eager[1][1]), "mesh pipeline: two eager runs differ")
+    for capture, pipe, launches, _ in turns:
+        if capture:
+            check(same_run(eager[0][1], pipe), "mesh pipeline: a graph run differs from the eager run")
+            check(launches == eager[0][2], f"mesh pipeline: launches {launches} under graphs, {eager[0][2]} eager")
+            g = pipe.steps.graphs["refine_state"]
+            check(g.replays == n_f - win, f"mesh pipeline: {g.replays} refine replays, expected {n_f - win}")
+    refine_ms = [median_ms(pipe.steps.refine, reps=10, warmup=2) for _, pipe, _, _ in turns]
+    k_e, c_e = device_events(turns[-2][1].steps.refine)
+    k_g, c_g = device_events(turns[-1][1].steps.refine)
+    pipe = turns[-1][1]
+    no_sync("one replay of the mesh pipeline's refine graph (NCCL all-reduces and all-gather inside)",
+            pipe.steps.refine)
+    g = pipe.steps.graphs["refine_state"]
+    say(f"mesh pipeline eager and graph in turns: {n_f} frames, refine every frame from frame {win - 1}, each graph "
+        f"run bit for bit the eager runs (outputs of every frame, final state) with their launches, the refine "
+        f"graph replayed {n_f - win} times a run; ms a refine (CUDA events, median of 10) " + ", ".join(
+            f"{'graph' if c else 'eager'} {ms:.3f}" for (c, _, _, _), ms in zip(turns, refine_ms))
+        + "; host ms/frame median over frames {}-{} ".format(win, n_f - 1) + ", ".join(
+            f"{'graph' if c else 'eager'} {med:.3f}" for c, _, _, med in turns)
+        + f"; kernels and copies a refine eager {k_e} + {c_e}, graph {k_g} + {c_g}; refine graph capture "
+        f"{g.capture_ms:.1f} ms, pool {g.pool_bytes / 2**20:.1f} MiB; card {card}")
+
+
+def compare_replicated_detector(cfg, dev, det, card: str) -> None:
+    """The replicated detector on the card's data axis: a replayed batch of
+    two frames against ``det.detect`` of each; then batches of 2 and 4
+    frames eager and replaying the device's graph in turns, each graph
+    batch bit for bit the eager one, timed, without a sync in a replay."""
     from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
     from stereo_semantic_vo_tpu_torch.models import zoo
     from stereo_semantic_vo_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
@@ -1441,13 +1529,15 @@ def compare_replicated_detector(cfg, dev, det) -> None:
 
     H, W = cfg.camera.height, cfg.camera.width
     src = two_plane_frame_source(H, W)
-    gray = [torch.from_numpy(src(i)[0] / 255.0).to(dev) for i in (0, 5)]
+    gray = [torch.from_numpy(src(i)[0] / 255.0).to(dev) for i in (0, 5, 10, 15)]
     imgs = torch.stack([torch.stack([g, g, g], -1) for g in gray])
     mesh = make_mesh(1, axis=DATA_AXIS, device=dev.type)
     detect = make_replicated_detector(mesh, zoo.KITTI_TINY_V2_CFG, img_hw=(H, W))
-    out = detect(imgs)
+    detect(imgs[:2])  # warms up and captures
+    out = detect(imgs[:2])
+    check(detect.graphs[0, 2][0].replays == 1, "replicated detector: the batch of 2 did not replay")
     box_err = 0.0
-    for b, img in enumerate(imgs):
+    for b, img in enumerate(imgs[:2]):
         want = det.detect(img)
         check(torch.equal(out.valid[b], want.valid), f"replicated detector: valid differs on frame {b}")
         v = want.valid
@@ -1455,11 +1545,29 @@ def compare_replicated_detector(cfg, dev, det) -> None:
         check(torch.allclose(out.scores[b], want.scores, rtol=DET_RTOL, atol=0.0),
               f"replicated detector: scores differ on frame {b}")
     check(box_err <= DET_BOX_TOL_PX, f"replicated detector: boxes differ by {box_err} px")
-    no_sync("one replicated detect of 2 frames", lambda: detect(imgs))
-    ms = median_ms(lambda: detect(imgs), reps=10)
-    say(f"replicated detector: 2 frames on {[str(d) for d in mesh.devices]} against detect of each: valid "
-        f"equal ({[int(x) for x in out.valid.sum(1)]} boxes), boxes within {box_err:.3g} px, scores within rtol "
-        f"{DET_RTOL}; {ms:.3f} ms a batch")
+    say(f"replicated detector: a replayed batch of 2 frames on {[str(d) for d in mesh.devices]} against detect of "
+        f"each: valid equal ({[int(x) for x in out.valid.sum(1)]} boxes), boxes within {box_err:.3g} px, scores "
+        f"within rtol {DET_RTOL}")
+    for B in (2, 4):
+        x, turns = imgs[:B], []
+        for capture in (False, True, False, True):
+            d = make_replicated_detector(mesh, zoo.KITTI_TINY_V2_CFG, img_hw=(H, W), capture=capture)
+            o = d(x) if not capture else (d(x), d(x))[1]
+            turns.append((capture, d, o, median_ms(lambda: d(x), reps=20)))
+        for capture, d, o, _ in turns:
+            check(all(torch.equal(a, b) for a, b in zip(o, turns[0][2])),
+                  f"replicated detector B={B} {'graph' if capture else 'eager'}: differs from the first eager batch")
+        d = turns[-1][1]
+        (g, static), = d.graphs.values()
+        check(tuple(static.shape) == (B, H, W, 3) and g.replays > 0, f"replicated detector B={B}: graph {static.shape}")
+        no_sync(f"one replayed replicated detect of {B} frames", lambda: d(x))
+        k_e, c_e = device_events(lambda: turns[-2][1](x))
+        k_g, c_g = device_events(lambda: d(x))
+        say(f"replicated detector B={B} eager and graph in turns, each batch bit for bit the first eager batch: ms a "
+            "batch (CUDA events, median of 20) " + ", ".join(f"{'graph' if c else 'eager'} {ms:.3f}"
+                                                            for c, _, _, ms in turns)
+            + f"; kernels and copies a batch eager {k_e} + {c_e}, graph {k_g} + {c_g}; capture {g.capture_ms:.1f} ms, "
+            f"graph pool {g.pool_bytes / 2**20:.1f} MiB; card {card}")
 
 
 def train_pool(cfg, net: int, dev) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -2198,7 +2306,7 @@ def main() -> None:
     by_path["sharded_window_ba"] = drive_sharded(cfg, dev, kernels, expected, card)
 
     # 14. the replicated detector
-    compare_replicated_detector(cfg, dev, det)
+    compare_replicated_detector(cfg, dev, det, card)
 
     # 15. detector training at full width: kitti_tiny_v2 (region loss), then tiny_v3 (yolo loss)
     from stereo_semantic_vo_tpu_torch.models import zoo

@@ -1,60 +1,30 @@
 """CUDA graphs of the tracking step: the port's counterpart of the
 reference's ``jax.jit`` programs ``init_step`` and ``track_step``
-(engine/tracker.py), ``refine_state`` (engine/window_ba.py) and its jitted
-``detect`` (models/yolo.py, captured by engine/pipeline.py).
-
-A :class:`Graph` is one function of fixed buffers.  Its first call runs the
-function eagerly on its capture stream and returns that result: the
-warm-up, which builds the kernel library and uploads the cached constants,
-and creates the libraries' handles and workspaces, none of which a capture
-may do.  It then captures the function into a CUDA graph in a memory pool;
-every later call replays the graph and returns the captured outputs, which
-the next replay overwrites.  Graphs that share a pool must run one after
-another, never at once.  A pool (:func:`capture_pool`) comes with a
-capture stream of its own, so graphs that may run at once (the streams of
-the dp tracker, detection beside the step, the trainer beside a pipeline)
-hold separate pools and so separate streams as well: the libraries key
-their workspaces (cuBLAS's) by the stream a call is made on, and a
-captured kernel keeps the workspace of its capture stream, so two graphs
-captured on one stream would share it at every replay.  A capture or a
-replay that fails raises: nothing falls back to eager dispatch on a card.
+(engine/tracker.py), ``refine_state`` and ``WindowBA._refine_jit`` (the
+landmark-sharded refine, engine/window_ba.py).  The graphs themselves are
+``core/cuda_graph.Graph``; the pipeline captures its jitted ``detect``
+with one as well (engine/pipeline.py).
 
 :class:`StepGraphs` holds a pipeline's static ``FrameInput`` and
 ``VOState`` buffers, a pool, and one graph for each of ``init_step``,
-``track_step`` and ``refine_state``; each copies the new state back into
-the static state inside the graph, so the step's frame counter, ring
-offsets and RANSAC draws (all on the device) advance on every replay.  With
-``capture=False``, which the CPU requires, it calls the eager functions on
-its state instead.
-
-The kernels' launch counters (``kernels.launch_counters``) count in the
-wrappers, which run only during a capture: a graph records each counter's
-rise during its capture, puts the counter back, and adds that rise on every
-replay, so the counts stay those of the kernels that ran.
+``track_step`` and the window refine (its ``WindowBA``'s: ``refine_state``,
+or with a mesh the sharded refine, collectives included); each copies the
+new state back into the static state inside the graph, so the step's
+frame counter, ring offsets and RANSAC draws (all on the device) advance
+on every replay.  With ``capture=False``, which the CPU requires, it calls
+the eager functions on its state instead.
 """
 
 from __future__ import annotations
-
-import gc
-import time
-from typing import Callable, NamedTuple
 
 import torch
 
 from stereo_semantic_vo_tpu_torch.core import lie
 from stereo_semantic_vo_tpu_torch.core.config import VOConfig
+from stereo_semantic_vo_tpu_torch.core.cuda_graph import Graph, capture_pool
 from stereo_semantic_vo_tpu_torch.engine.state import TrackOutputs, VOState
 from stereo_semantic_vo_tpu_torch.engine.tracker import FrameInput, init_step, track_step
-from stereo_semantic_vo_tpu_torch.engine.window_ba import refine_state
-from stereo_semantic_vo_tpu_torch.kernels import launch_counters
-
-
-def _tensors(tree) -> list[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, (tuple, list)):
-        return [x for item in tree for x in _tensors(item)]
-    return []
+from stereo_semantic_vo_tpu_torch.engine.window_ba import WindowBA
 
 
 def _copy_state(dst: VOState, src: VOState) -> None:
@@ -65,94 +35,17 @@ def _copy_state(dst: VOState, src: VOState) -> None:
             a.copy_(b)
 
 
-class CapturePool(NamedTuple):
-    """A graph memory pool and the stream its graphs are captured on."""
-
-    handle: tuple
-    stream: torch.cuda.Stream
-
-
-def capture_pool(device: torch.device) -> CapturePool:
-    """A new pool on ``device`` with a capture stream of its own."""
-    with torch.cuda.device(device):
-        return CapturePool(torch.cuda.graph_pool_handle(), torch.cuda.Stream(device))
-
-
-class Graph:
-    """``fn()``, a function of fixed buffers on ``device``, run eagerly once
-    on ``pool``'s stream and then replayed from a CUDA graph captured
-    there into ``pool``."""
-
-    def __init__(self, fn: Callable, pool: CapturePool, device: torch.device):
-        self.fn, self.pool, self.device = fn, pool, device
-        self.graph: torch.cuda.CUDAGraph | None = None
-        self.outputs = None
-        self.rise: list[tuple[Callable, int]] = []  # (counted kernel entry, launches a replay)
-        self.capture_ms = 0.0
-        self.pool_bytes = 0  # the device memory the capture reserved
-        self.replays = 0
-
-    def __call__(self):
-        with torch.cuda.device(self.device):
-            if self.graph is None:
-                out = self._warm_up()
-                self._capture()
-                return out
-            self.graph.replay()
-        self.replays += 1
-        for entry, n in self.rise:
-            entry.launches += n
-        return self.outputs
-
-    def _warm_up(self):
-        cur = torch.cuda.current_stream()
-        # on the capture stream, so that the libraries create its
-        # workspaces now and not inside the capture
-        side = self.pool.stream
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            out = self.fn()
-        cur.wait_stream(side)
-        for x in _tensors(out):
-            x.record_stream(cur)
-        return out
-
-    def _capture(self) -> None:
-        entries = list(launch_counters().values())
-        before = [e.launches for e in entries]
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved()
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        # torch.cuda.graph collects garbage before the capture begins; no
-        # collection may run inside it, where freeing another CUDA graph or
-        # event would make a call the capture forbids and invalidate it
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool.handle, stream=self.pool.stream):
-                self.outputs = self.fn()
-        finally:  # nothing ran during the capture
-            if collecting:
-                gc.enable()
-            rise = [(e, e.launches - b) for e, b in zip(entries, before) if e.launches != b]
-            for e, b in zip(entries, before):
-                e.launches = b
-        torch.cuda.synchronize()
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.pool_bytes = torch.cuda.memory_reserved() - reserved
-        self.rise, self.graph = rise, graph
-
-
 class StepGraphs:
     """A pipeline's step functions on static buffers: ``init()``,
     ``track()`` and ``refine()`` run one step on ``self.frame`` and
     ``self.state``.  With ``capture`` each is a :class:`Graph` (the state
-    is copied into buffers of its own); without, the eager function."""
+    is copied into buffers of its own); without, the eager function.  The
+    refine is ``window_ba``'s (default: ``WindowBA(cfg)``, which is
+    ``refine_state``)."""
 
-    def __init__(self, cfg: VOConfig, state: VOState, capture: bool):
+    def __init__(self, cfg: VOConfig, state: VOState, capture: bool, window_ba: WindowBA | None = None):
         self.cfg, self.capture = cfg, capture
+        self.window_ba = window_ba or WindowBA(cfg)
         self.device = state.T_cw.device
         self.frame: FrameInput | None = None
         if not capture:
@@ -192,7 +85,7 @@ class StepGraphs:
         return out
 
     def _refine(self) -> tuple[torch.Tensor, torch.Tensor]:
-        _copy_state(self.state, refine_state(self.state, self.cfg))
+        _copy_state(self.state, self.window_ba.refine_window(self.state)[0])
         return self.state.T_cw, lie.T_inv(self.state.T_cw)
 
     def init(self) -> TrackOutputs:
@@ -208,8 +101,10 @@ class StepGraphs:
         return out
 
     def refine(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The window refine -> the refined (T_cw, T_wc)."""
+        """The window refine -> the refined (T_cw, T_wc).  Its gate on the
+        host count of frames is the caller's (``self.window_ba.ready``); the
+        device gate runs inside."""
         if self.capture:
             return self.graphs["refine_state"]()
-        self.state = refine_state(self.state, self.cfg)
+        self.state = self.window_ba.refine_window(self.state)[0]
         return self.state.T_cw, lie.T_inv(self.state.T_cw)

@@ -7,7 +7,8 @@ Port of ``stereo_semantic_vo_tpu.engine.pipeline.VOPipeline``.  With
 every N-th frame once the window is full; with a ``ba_mesh``
 (parallel/mesh.py) it is the landmark-sharded ``WindowBA``: every rank runs
 a pipeline on its own device over the same frames, and the refine's solve
-is split over the ranks.  Frame decode runs on a prefetch thread; frames
+is split over the ranks; on a card its refine graph holds the mesh's
+collectives.  Frame decode runs on a prefetch thread; frames
 are copied to the device from pinned memory without blocking.  The
 readback is deferred by one frame: at the end of frame t's dispatch, on
 the main stream after its last step, ``pnp_ok`` and ``T_wc`` are copied
@@ -19,7 +20,8 @@ queued, and prepares frame t+1 while the device runs frame t.
 On a card each frame replays CUDA graphs (engine/graphs.py), the port's
 counterpart of the reference's jitted step: ``init_step`` or
 ``track_step`` (chosen on the host, as the reference's pipeline does), the
-window refine on refine frames and, online, ``detect``.  The first call of
+window refine on refine frames (sharded over the mesh, NCCL included,
+with a ``ba_mesh``) and, online, ``detect``.  The first call of
 each runs eagerly and captures it.  Frames are uploaded straight into the
 graphs' static buffers, and the outputs that ``_finalize`` and ``outputs``
 keep are copied on the device before the next replay overwrites them.
@@ -50,9 +52,9 @@ from typing import Any, Iterable
 import numpy as np
 import torch
 
-from stereo_semantic_vo_tpu_torch.core import lie
 from stereo_semantic_vo_tpu_torch.core.config import VOConfig
-from stereo_semantic_vo_tpu_torch.engine.graphs import Graph, StepGraphs, capture_pool
+from stereo_semantic_vo_tpu_torch.core.cuda_graph import Graph, capture_pool
+from stereo_semantic_vo_tpu_torch.engine.graphs import StepGraphs
 from stereo_semantic_vo_tpu_torch.engine.state import TrackOutputs, init_state
 from stereo_semantic_vo_tpu_torch.engine.tracker import FrameInput
 from stereo_semantic_vo_tpu_torch.engine.window_ba import WindowBA
@@ -98,12 +100,13 @@ class VOPipeline:
         self.device = torch.device(device)
         if capture is None:
             capture = self.device.type == "cuda"
-        self.steps = StepGraphs(cfg, init_state(cfg, self.device), capture)
+        state = init_state(cfg, self.device)
         self.window_ba = None
         if local_ba_every > 0 and ba_mesh is not None:
-            if ba_mesh.device != self.steps.device:
-                raise ValueError(f"the mesh's rank runs on {ba_mesh.device}, the pipeline on {self.steps.device}")
+            if ba_mesh.device != state.T_cw.device:
+                raise ValueError(f"the mesh's rank runs on {ba_mesh.device}, the pipeline on {state.T_cw.device}")
             self.window_ba = WindowBA(cfg, mesh=ba_mesh)
+        self.steps = StepGraphs(cfg, state, capture, self.window_ba)
         self.detector = detector
         if detector is not None and detector.device != self.steps.device:
             raise ValueError(f"the detector runs on {detector.device}, the pipeline on {self.steps.device}")
@@ -280,13 +283,9 @@ class VOPipeline:
         if (
             self.local_ba_every > 0
             and fidx % self.local_ba_every == 0
-            and self._n_processed >= self.cfg.window.window_frames
+            and steps.window_ba.ready(self._n_processed)
         ):
-            if self.window_ba is not None:
-                steps.load_state(self.window_ba.refine(steps.state, self._n_processed)[0])
-                T_cw, T_wc = steps.state.T_cw, lie.T_inv(steps.state.T_cw)
-            else:
-                T_cw, T_wc = steps.refine()
+            T_cw, T_wc = steps.refine()
             # the closed-form rigid inverse; the reference's jnp.linalg.inv
             # agrees to float32 rounding (~1e-7)
             out = out._replace(T_cw=T_cw, T_wc=T_wc)

@@ -18,7 +18,10 @@ never reads back to the host and one captured CUDA graph serves every
 frame (engine/graphs.py).  ``WindowBA(cfg, mesh=...)`` runs the same trim
 and gate, then the landmark-sharded solve of ``parallel/sharded_ba.py``
 over the mesh's ranks (the engine of ``VOPipeline(ba_mesh=...)``); it is
-gated on the pipeline's host count of frames.
+gated on the pipeline's host count of frames.  Its ``refine_window`` is
+a function of the state alone, so ``engine/graphs.StepGraphs`` captures
+it, the mesh's collectives included, as the reference jits it
+(``WindowBA._refine_jit``).
 """
 
 from __future__ import annotations
@@ -194,7 +197,9 @@ class WindowBA:
         self._sharded = None
         if mesh is not None:
             self.cam = Camera.from_config(cfg.camera, mesh.device)
-            self._sharded = make_sharded_local_ba(mesh, self.cam, cfg.ba, stereo_edges=True)
+            # the runner's body, uncaptured: a pipeline's graph captures the
+            # whole refine around it (engine/graphs.StepGraphs)
+            self._sharded = make_sharded_local_ba(mesh, self.cam, cfg.ba, stereo_edges=True).body
 
     def ready(self, n_frames: int) -> bool:
         """Whether ``n_frames`` tracked frames (the pipeline's host count)
@@ -205,14 +210,18 @@ class WindowBA:
         """-> (refined state, stats of device scalars: n_obs, n_points, cost;
         empty without a mesh or before the window is full).  ``n_frames``
         is the host count of frames ``state`` has tracked."""
-        if self._sharded is None:
-            return refine_state(state, self.cfg), {}
-        if not self.ready(n_frames):
+        if self._sharded is not None and not self.ready(n_frames):
             return state, {}
-        return self._sharded_refine(state)
+        return self.refine_window(state)
 
     @f32_geometry
-    def _sharded_refine(self, state: VOState) -> tuple[VOState, dict]:
+    def refine_window(self, state: VOState) -> tuple[VOState, dict]:
+        """The refine of ``state`` whatever the host count: without a mesh
+        :func:`refine_state`; with one the observation build, trim, device
+        gate, solve over the mesh and write-back.  Reads nothing back, so a
+        CUDA graph can hold it (engine/graphs.StepGraphs)."""
+        if self._sharded is None:
+            return refine_state(state, self.cfg), {}
         cfg, mesh = self.cfg, self.mesh
         W, K = cfg.window.window_frames, cfg.orb.max_keypoints
         order, poses, win_uid, win_uv, win_valid, win_disp = _window_view(state, W, K)

@@ -6,7 +6,7 @@ def launch_counters() -> dict:
     """Each kernel's counted entry by name: ``entry.launches`` is how often
     it has launched its CUDA kernel in this process (B1, B4 and B6 count on
     the batched entries the one-shot ones call).  A CUDA graph of the step
-    (engine/graphs.py) adds the launches it captured on every replay."""
+    (core/cuda_graph.py) adds the launches it captured on every replay."""
     from stereo_semantic_vo_tpu_torch.kernels.ba_hessian import local_ba_blocks, motion_hessian_gradient
     from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_scores_levels
     from stereo_semantic_vo_tpu_torch.kernels.hamming import hamming_distance_matrix_pallas

@@ -182,15 +182,16 @@ def decode_head(
 
 
 def iou_xyxy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(N, 4) x (M, 4) -> (N, M) IoU for [x1, y1, x2, y2] boxes."""
-    x1 = torch.maximum(a[:, None, 0], b[None, :, 0])
-    y1 = torch.maximum(a[:, None, 1], b[None, :, 1])
-    x2 = torch.minimum(a[:, None, 2], b[None, :, 2])
-    y2 = torch.minimum(a[:, None, 3], b[None, :, 3])
+    """(..., N, 4) x (..., M, 4) -> (..., N, M) IoU for [x1, y1, x2, y2]
+    boxes (leading axes broadcast)."""
+    x1 = torch.maximum(a[..., :, None, 0], b[..., None, :, 0])
+    y1 = torch.maximum(a[..., :, None, 1], b[..., None, :, 1])
+    x2 = torch.minimum(a[..., :, None, 2], b[..., None, :, 2])
+    y2 = torch.minimum(a[..., :, None, 3], b[..., None, :, 3])
     inter = torch.clamp(x2 - x1, min=0) * torch.clamp(y2 - y1, min=0)
-    area_a = torch.clamp(a[:, 2] - a[:, 0], min=0) * torch.clamp(a[:, 3] - a[:, 1], min=0)
-    area_b = torch.clamp(b[:, 2] - b[:, 0], min=0) * torch.clamp(b[:, 3] - b[:, 1], min=0)
-    union = area_a[:, None] + area_b[None, :] - inter
+    area_a = torch.clamp(a[..., 2] - a[..., 0], min=0) * torch.clamp(a[..., 3] - a[..., 1], min=0)
+    area_b = torch.clamp(b[..., 2] - b[..., 0], min=0) * torch.clamp(b[..., 3] - b[..., 1], min=0)
+    union = area_a[..., :, None] + area_b[..., None, :] - inter
     return inter / torch.clamp(union, min=1e-9)
 
 
@@ -201,53 +202,70 @@ def nms_fixed(
     highest live score (the first on ties) and suppressing overlaps above
     ``iou_th`` (box.c:58 do_nms_sort).  A step whose best score is 0 keeps
     that box with ``valid=False`` and suppresses nothing.  Returns (boxes
-    (max_out, 4), scores (max_out,), valid (max_out,)).
+    (max_out, 4), scores (max_out,), valid (max_out,)): :func:`nms_fixed_batch`
+    of a batch of one."""
+    b, s, v = nms_fixed_batch(boxes[None], scores[None], max_out, iou_th)
+    return b[0], s[0], v[0]
 
-    The pick is a 1-element index tensor used through ``gather`` and
-    ``index_select``: indexing with a 0-d device tensor would read it back
-    to the host."""
-    N = boxes.shape[0]
+
+def nms_fixed_batch(
+    boxes: torch.Tensor, scores: torch.Tensor, max_out: int, iou_th: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`nms_fixed` of each image of a batch in one program: (B, N, 4)
+    boxes and (B, N) scores -> (B, max_out, 4), (B, max_out), (B, max_out).
+    Each step picks every image's highest live score (the first on ties) by
+    one ``argmax`` over the batch.
+
+    The picks are (B, 1) index tensors used through ``gather``: indexing
+    with a device tensor would read it back to the host."""
+    B, N = scores.shape
     iou = iou_xyxy(boxes, boxes)
     idx = torch.arange(N, device=boxes.device)
     alive = scores
     out_b, out_s, out_v = [], [], []
     for _ in range(max_out):
-        i = torch.argmax(alive).view(1)
-        s = alive.gather(0, i)
+        i = torch.argmax(alive, dim=1, keepdim=True)  # (B, 1)
+        s = alive.gather(1, i)
         keep = s > 0.0
-        suppress = iou.index_select(0, i)[0] > iou_th
+        suppress = iou.gather(1, i[:, :, None].expand(B, 1, N))[:, 0] > iou_th
         new = torch.where(suppress | (idx == i), 0.0, alive)
         alive = torch.where(keep, new, alive)
-        out_b.append(boxes.index_select(0, i))
+        out_b.append(boxes.gather(1, i[:, :, None].expand(B, 1, 4)))
         out_s.append(s)
         out_v.append(keep)
-    return torch.cat(out_b), torch.cat(out_s), torch.cat(out_v)
+    return torch.cat(out_b, 1), torch.cat(out_s, 1), torch.cat(out_v, 1)
 
 
 def letterbox(img: torch.Tensor, net_w: int, net_h: int, img_w: int, img_h: int) -> torch.Tensor:
     """(H, W, 3) [0, 1] -> (net_h, net_w, 3), aspect-preserving, 0.5-padded
     (darknet letterbox_image, image.c)."""
+    return letterbox_batch(img[None], net_w, net_h, img_w, img_h)[0]
+
+
+def letterbox_batch(imgs: torch.Tensor, net_w: int, net_h: int, img_w: int, img_h: int) -> torch.Tensor:
+    """:func:`letterbox` of each of (B, H, W, 3) images -> (B, net_h, net_w, 3)."""
     scale = min(net_w / img_w, net_h / img_h)
     new_w = int(img_w * scale)
     new_h = int(img_h * scale)
-    resized = F.interpolate(img.permute(2, 0, 1)[None], size=(new_h, new_w), mode="bilinear",
-                            align_corners=False, antialias=True)[0]
-    out = torch.full((3, net_h, net_w), 0.5, dtype=img.dtype, device=img.device)
+    resized = F.interpolate(imgs.permute(0, 3, 1, 2), size=(new_h, new_w), mode="bilinear",
+                            align_corners=False, antialias=True)
+    out = torch.full((imgs.shape[0], 3, net_h, net_w), 0.5, dtype=imgs.dtype, device=imgs.device)
     oy = (net_h - new_h) // 2
     ox = (net_w - new_w) // 2
-    out[:, oy:oy + new_h, ox:ox + new_w] = resized
-    return out.permute(1, 2, 0)
+    out[:, :, oy:oy + new_h, ox:ox + new_w] = resized
+    return out.permute(0, 2, 3, 1)
 
 
 def unletterbox_boxes(boxes_rel: torch.Tensor, net_w: int, net_h: int, img_w: int, img_h: int) -> torch.Tensor:
-    """(N, 4) cx, cy, w, h relative to the net input -> (N, 4) x1y1x2y2 image px."""
+    """(..., N, 4) cx, cy, w, h relative to the net input -> (..., N, 4)
+    x1y1x2y2 image px."""
     scale = min(net_w / img_w, net_h / img_h)
     ox = (net_w - img_w * scale) / 2.0
     oy = (net_h - img_h * scale) / 2.0
-    cx = (boxes_rel[:, 0] * net_w - ox) / scale
-    cy = (boxes_rel[:, 1] * net_h - oy) / scale
-    w = boxes_rel[:, 2] * net_w / scale
-    h = boxes_rel[:, 3] * net_h / scale
+    cx = (boxes_rel[..., 0] * net_w - ox) / scale
+    cy = (boxes_rel[..., 1] * net_h - oy) / scale
+    w = boxes_rel[..., 2] * net_w / scale
+    h = boxes_rel[..., 3] * net_h / scale
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
 
 
@@ -323,22 +341,28 @@ class YoloDetector:
         with torch.no_grad(), f32_matmul():
             return self.net(x.contiguous())
 
+    def candidates(
+        self, heads: list[tuple[dict, torch.Tensor]], img_w: int, img_h: int
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The head maps of a batch of (img_h, img_w) images -> each image's
+        candidate boxes before NMS: (B, N, 4) x1y1x2y2 image px, (B, N)
+        scores (0 below ``conf_threshold``) and (B, N) classes."""
+        all_boxes, all_scores, all_cls = [], [], []
+        for (sec, feat), anchors in zip(heads, self.net.anchors):
+            boxes, cls, obj = decode_head(sec, feat, self.num_classes, anchors)
+            score = obj[..., None] * cls
+            all_boxes.append(boxes)
+            all_scores.append(torch.amax(score, dim=-1))
+            all_cls.append(torch.argmax(score, dim=-1))
+        scores = torch.cat(all_scores, dim=1)
+        scores = torch.where(scores >= self.conf_threshold, scores, 0.0)
+        boxes_px = unletterbox_boxes(torch.cat(all_boxes, dim=1), self.net_w, self.net_h, img_w, img_h)
+        return boxes_px, scores, torch.cat(all_cls, dim=1)
+
     def detect(self, img: torch.Tensor) -> Detections:
         """img: (H, W, 3) or (H, W) float32 in [0, 1], on the detector's device."""
-        img_h, img_w = img.shape[0], img.shape[1]
         with torch.no_grad():
-            all_boxes, all_scores, all_cls = [], [], []
-            for (sec, feat), anchors in zip(self.heads(img), self.net.anchors):
-                boxes, cls, obj = decode_head(sec, feat, self.num_classes, anchors)
-                score = obj[..., None] * cls
-                all_boxes.append(boxes[0])
-                all_scores.append(torch.amax(score[0], dim=-1))
-                all_cls.append(torch.argmax(score[0], dim=-1))
-            boxes = torch.cat(all_boxes)
-            scores = torch.cat(all_scores)
-            classes = torch.cat(all_cls)
-            scores = torch.where(scores >= self.conf_threshold, scores, 0.0)
-            boxes_px = unletterbox_boxes(boxes, self.net_w, self.net_h, img_w, img_h)
-            b, s, v = nms_fixed(boxes_px, scores, self.max_boxes, self.nms_iou)
-            cls_out = classes.gather(0, torch.argmax(iou_xyxy(b, boxes_px), dim=1)).to(torch.int32)
+            boxes, scores, classes = (x[0] for x in self.candidates(self.heads(img), img.shape[1], img.shape[0]))
+            b, s, v = nms_fixed(boxes, scores, self.max_boxes, self.nms_iou)
+            cls_out = classes.gather(0, torch.argmax(iou_xyxy(b, boxes), dim=1)).to(torch.int32)
         return Detections(boxes=b, scores=s, classes=cls_out, valid=v)

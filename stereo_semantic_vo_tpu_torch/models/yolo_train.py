@@ -46,8 +46,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from stereo_semantic_vo_tpu_torch.core.cuda_graph import Graph, capture_pool
 from stereo_semantic_vo_tpu_torch.core.precision import f32_matmul
-from stereo_semantic_vo_tpu_torch.engine.graphs import Graph, capture_pool
 from stereo_semantic_vo_tpu_torch.io import darknet
 from stereo_semantic_vo_tpu_torch.models.yolo import LEAKY_SLOPE, _conv_same, _maxpool
 
@@ -535,7 +535,7 @@ class YoloTrainer:
     ``device`` defaults to the card; pass ``"cpu"`` to train on the CPU.
 
     ``capture`` (default: on a card) runs each step as a CUDA graph
-    (engine/graphs.Graph): the first step of a batch shape runs eagerly and
+    (core/cuda_graph.Graph): the first step of a batch shape runs eagerly and
     captures forward, losses, ``torch.autograd.grad``, the update and the
     counters into a graph over static input buffers, in a memory pool of
     the trainer's; later steps of that shape copy their batch into the

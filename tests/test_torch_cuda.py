@@ -40,7 +40,12 @@ pipeline replaying CUDA graphs of its step equal, bit for bit, to its eager
 dispatch (sparse and knob over 8 frames, dense with a refine every frame
 over 5), capturing and replaying without a sync, and raising where a
 captured function reads back; ``process_frame(t)`` returning long before a
-200 ms sleep queued after frame t's replay ends, the run unchanged."""
+200 ms sleep queued after frame t's replay ends, the run unchanged; on an
+in-process one-rank NCCL group, the sharded runner's graph and the mesh
+pipeline's (its refine graph holding the collectives, 8 frames, a refine a
+frame) equal, bit for bit, to their eager runs; the replicated detector's
+graph at 2 and 4 frames equal, bit for bit, to its eager batched program;
+a replay of each of these graphs without a sync."""
 
 import dataclasses
 
@@ -1551,3 +1556,128 @@ def test_a_capture_that_hits_a_forbidden_op_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         pipe.process_frame(*frames[1])
     assert pipe.steps.graphs["track_step"].graph is None
+
+
+# --- the sharded window refine and the replicated detector as CUDA graphs
+
+
+class _OneRankNccl:
+    """An in-process one-rank NCCL group on the card, destroyed on exit
+    (after the graphs that hold its collectives are collected)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from stereo_semantic_vo_tpu_torch.parallel import mesh as TMESH
+
+        dev = cuda_device()
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_ba_free_port()}", world_size=1, rank=0)
+        return TMESH.make_mesh(device="cuda")
+
+    def __exit__(self, *exc):
+        import gc
+
+        import torch.distributed as dist
+
+        gc.collect()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+
+def _no_sync(fn):
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_sharded_runner_graph_equals_eager_bit_for_bit():
+    """The standalone sharded runner at one NCCL rank: its graph (the
+    first call warms up and captures, later calls replay on new inputs)
+    equal, bit for bit, to the eager runner on the same inputs, with the
+    all-reduces inside the capture; a replay reads nothing back."""
+    from stereo_semantic_vo_tpu_torch.core.config import BAConfig
+    from stereo_semantic_vo_tpu_torch.parallel.sharded_ba import make_sharded_local_ba
+
+    with _OneRankNccl() as mesh:
+        dev = mesh.device
+        poses, X, obs, mask, cam, delta, ur, rm = _ba_problem(dev, 4, 2048, True, seed=3)
+        pv = torch.ones(2048, dtype=torch.bool, device=dev)
+        cfg = BAConfig(local_iterations=5)
+        eager = make_sharded_local_ba(mesh, cam, cfg, stereo_edges=True, capture=False)
+        graph = make_sharded_local_ba(mesh, cam, cfg, stereo_edges=True)
+        assert not eager.graphs
+        for shift in (0.1, -0.05, 0.2):
+            args = (poses, X + shift, obs, mask, pv, ur, rm)
+            want = eager(*args)
+            got = graph(*args) if shift != 0.2 else _no_sync(lambda: graph(*args))
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+        (g, _), = graph.graphs.values()
+        assert g.graph is not None and g.replays == 2
+        del eager, graph, g
+
+
+def test_mesh_pipeline_graph_equals_eager_bit_for_bit():
+    """``VOPipeline(ba_mesh=..., local_ba_every=1)`` on a one-rank NCCL
+    mesh over 8 frames, refining every frame from frame 3: replaying the
+    sharded refine's graph (its collectives inside) equals the eager
+    dispatch bit for bit, every frame's outputs and the final state, with
+    the same launches; a refine replay reads nothing back."""
+    with _OneRankNccl() as mesh:
+        dev = mesh.device
+        cfg = _graph_cfg("sparse")
+        runs = {}
+        for capture in (False, True):
+            from stereo_semantic_vo_tpu_torch.kernels import launch_counters
+
+            before = {name: k.launches for name, k in launch_counters().items()}
+            pipe = VOPipeline(cfg, device=dev, local_ba_every=1, ba_mesh=mesh, capture=capture,
+                              write_trajectory=False)
+            for f in _graph_frames(cfg, 8):
+                pipe.process_frame(*f)
+            pipe.flush()
+            torch.cuda.synchronize()
+            runs[capture] = pipe, {name: k.launches - before[name] for name, k in launch_counters().items()}
+        (eager, le), (graph, lg) = runs[False], runs[True]
+        assert graph.window_ba is not None and graph.steps.window_ba is graph.window_ba
+        assert lg == le and lg["local_ba_blocks"] == 0
+        assert graph.steps.graphs["refine_state"].replays == 8 - cfg.window.window_frames
+        for a, b in zip(eager.outputs, graph.outputs):
+            for name, x, y in zip(a._fields, a, b):
+                assert torch.equal(x, y), name
+        for name, x, y in zip(eager.state._fields, eager.state, graph.state):
+            assert torch.equal(x, y), name
+        _no_sync(graph.steps.refine)
+        assert graph.steps.graphs["refine_state"].replays == 9 - cfg.window.window_frames
+        del runs, eager, graph
+
+
+@pytest.mark.parametrize("B", [2, 4])
+def test_replicated_detector_graph_equals_eager_bit_for_bit(B):
+    """The replicated detector on the card's data axis: its graph (one a
+    device and block size; a capture, then replays on new frames) equal,
+    bit for bit, to the eager batched program; a replay reads nothing
+    back."""
+    from stereo_semantic_vo_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+    from stereo_semantic_vo_tpu_torch.parallel.semantic_head import make_replicated_detector
+
+    dev = cuda_device()
+    mesh = make_mesh(1, axis=DATA_AXIS, device="cuda")
+    kw = dict(conf_threshold=0.01, img_hw=(240, 320))
+    eager = make_replicated_detector(mesh, zoo.KITTI_TINY_V2_CFG, capture=False, **kw)
+    graph = make_replicated_detector(mesh, zoo.KITTI_TINY_V2_CFG, **kw)
+    src = two_plane_frame_source(240, 320)
+    for k in range(3):
+        gray = torch.from_numpy(np.stack([src(k + b)[0] / 255.0 for b in range(B)]).astype(np.float32)).to(dev)
+        imgs = torch.stack([gray] * 3, -1)
+        want = eager(imgs)
+        got = graph(imgs) if k < 2 else _no_sync(lambda: graph(imgs))
+        assert tuple(got.boxes.shape) == (B, 32, 4) and bool(got.valid.any())
+        for name in ("boxes", "scores", "valid", "classes"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+    (g, static), = graph.graphs.values()
+    assert g.replays == 2 and tuple(static.shape) == (B, 240, 320, 3) and not eager.graphs

@@ -16,11 +16,15 @@ on success.
 
 With a landmark count L (default 64) it also prints the sharded solve's
 median time over 10 calls (CUDA events on a card, the host clock on the
-CPU).
+CPU).  On a card the runner replays a CUDA graph of the solve with the
+NCCL collectives inside; the worker then also runs the eager runner
+(``capture=False``), prints its time, and requires a replay to equal it
+bit for bit.
 
 Usage: python torch_sharded_ba_worker.py <host:port> <num_procs> <proc_id> [cpu|cuda] [L]
 """
 
+import gc
 import os
 import sys
 import time
@@ -70,7 +74,7 @@ def main() -> None:
     urm = np.ones((F, L), bool)
     T = [torch.from_numpy(a).to(dev) for a in (poses, X_noisy, uv, mask, pv, ur, urm)]
 
-    run = make_sharded_local_ba(mesh, cam, cfg, stereo_edges=True)
+    run = make_sharded_local_ba(mesh, cam, cfg, stereo_edges=True)  # a graph on a card
     res = run(T[0], shard_landmarks(mesh, T[1]), shard_landmarks(mesh, T[2], dim=1),
               shard_landmarks(mesh, T[3], dim=1), shard_landmarks(mesh, T[4]),
               shard_landmarks(mesh, T[5], dim=1), shard_landmarks(mesh, T[6], dim=1))
@@ -84,23 +88,37 @@ def main() -> None:
     else:
         assert dpose <= 5e-3 and float(dpts.median()) < 0.05 and dcost <= 1e-3, (dpose, float(dpts.median()), dcost)
     args = (T[0], *(shard_landmarks(mesh, T[i], dim=d) for i, d in ((1, 0), (2, 1), (3, 1), (4, 0), (5, 1), (6, 1))))
-    times = []
-    for _ in range(12):
-        if kind == "cuda":
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            run(*args)
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        else:
-            t0 = time.perf_counter()
-            run(*args)
-            times.append((time.perf_counter() - t0) * 1e3)
+
+    def solve_ms(fn) -> float:
+        times = []
+        for _ in range(12):
+            if kind == "cuda":
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn(*args)
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+            else:
+                t0 = time.perf_counter()
+                fn(*args)
+                times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times[2:]))
+
+    line = f"solve_ms={solve_ms(run):.3f}"
+    if kind == "cuda":
+        eager = make_sharded_local_ba(mesh, cam, cfg, stereo_edges=True, capture=False)
+        got, want = run(*args), eager(*args)
+        differ = [f for f, x, y in zip(got._fields, got, want) if not torch.equal(x, y)]
+        assert not differ, f"the graph's replay differs from the eager runner in {differ}"
+        line += f" eager_solve_ms={solve_ms(eager):.3f} graph_equals_eager=True"
+        del eager, got, want
     print(f"PARITY_OK pid={pid} ranks={mesh.size} device={dev} L={L} cost={float(res.cost):.4f} "
-          f"d_cost={dcost:.3g} d_pose={dpose:.3g} d_point_max={float(dpts.max()):.3g} "
-          f"solve_ms={float(np.median(times[2:])):.3f}", flush=True)
-    dist.destroy_process_group()
+          f"d_cost={dcost:.3g} d_pose={dpose:.3g} d_point_max={float(dpts.max()):.3g} {line}", flush=True)
+    del run
+    gc.collect()  # the graphs that hold the group's collectives go before the group
+    if dist.is_initialized():  # one process runs without a group
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":
