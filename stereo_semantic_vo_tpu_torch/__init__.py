@@ -22,7 +22,8 @@ Layout (each module mirrors its counterpart in the JAX package):
   io/        KITTI loading (native C++ prefetcher or Pillow), the procedural
              two-plane sequence, darknet cfg and weights
   eval/      ATE / RPE
-  utils/     checkpoints of the VO state, stage timer, profiler traces
+  utils/     checkpoints of the VO state, the tracer (stage stamps in the
+             step graphs, program spans), profiler traces
   viz/       trajectory, map, match and box figures (matplotlib)
   tools/     on-card timing and profiling scripts, the replay-training tool
   interop.py config, state and trainer-state exchange with the JAX package

@@ -23,7 +23,8 @@ the capture.
 The kernels' launch counters (``kernels.launch_counters``) count in the
 wrappers, which run only during a capture: a graph records each counter's
 rise during its capture, puts the counter back, and adds that rise on every
-replay, so the counts stay those of the kernels that ran.
+replay, so the counts stay those of the kernels that ran.  The tracer
+(utils/profiling.py) counts every capture and its milliseconds.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from stereo_semantic_vo_tpu_torch.kernels import launch_counters
+from stereo_semantic_vo_tpu_torch.utils import profiling
 
 
 def _tensors(tree) -> list[torch.Tensor]:
@@ -121,5 +123,6 @@ class Graph:
                 e.launches = b
         torch.cuda.synchronize()
         self.capture_ms = (time.perf_counter() - t0) * 1e3
+        profiling.count_capture(self.capture_ms)
         self.pool_bytes = torch.cuda.memory_reserved() - reserved
         self.rise, self.graph = rise, graph

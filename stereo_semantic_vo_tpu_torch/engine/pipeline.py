@@ -59,6 +59,7 @@ from stereo_semantic_vo_tpu_torch.engine.state import TrackOutputs, init_state
 from stereo_semantic_vo_tpu_torch.engine.tracker import FrameInput
 from stereo_semantic_vo_tpu_torch.engine.window_ba import WindowBA
 from stereo_semantic_vo_tpu_torch.engine.trajectory import TrajectoryWriter
+from stereo_semantic_vo_tpu_torch.utils import profiling
 
 
 def _prefetch(iterator: Iterable, depth: int = 2):
@@ -242,60 +243,71 @@ class VOPipeline:
         timestamp: float,
     ):
         """Track one stereo pair.  ``boxes`` None means: detect with the
-        pipeline's detector, or no boxes without one."""
+        pipeline's detector, or no boxes without one.
+
+        Its program spans (utils/profiling.span): ``pipeline.upload``
+        (images and boxes into the static buffers, and online the queued
+        detection), ``pipeline.dispatch`` (the replays),
+        ``pipeline.readback`` (the output clones and the queued copy to the
+        host), then, in ``_finalize`` of frame t-1, ``pipeline.wait`` (the
+        wait on its readback event alone) and ``pipeline.append`` (the
+        trajectory writer's append)."""
         t0 = time.perf_counter()
         steps = self.steps
-        left = np.asarray(left, np.float32)
-        nb = self.cfg.semantic.max_boxes if boxes is None else len(boxes)
-        static = steps.frame_buffers(left.shape, nb) if steps.capture else None
-        dst = static._asdict() if static is not None else {}  # the uploads' static buffers
-        online = boxes is None and self.detector is not None and self.async_detect
-        if online:
-            # before the upload: under graphs the detection of the frame
-            # before reads the static left image
-            boxes_dev, valid_dev = self._stale_boxes(static)
-        left_dev = self._to_device(left, dst.get("left"))
-        if online:
-            self._detect_async(left_dev)
-        else:
-            if boxes is None and self.detector is not None:
-                boxes, boxes_valid = self._detect(left_dev)
-            elif boxes is None:
-                boxes, boxes_valid = np.zeros((nb, 4), np.float32), np.zeros(nb, bool)
-            boxes_dev = self._to_device(np.asarray(boxes, np.float32), dst.get("boxes"))
-            valid_dev = self._to_device(np.asarray(boxes_valid, bool), dst.get("boxes_valid"))
-        right_dev = self._to_device(np.asarray(right, np.float32), dst.get("right"))
-        if static is None:
-            steps.frame = FrameInput(left=left_dev, right=right_dev, boxes=boxes_dev, boxes_valid=valid_dev)
-        reseed = (
-            self.reinit_after_lost > 0 and self._consecutive_lost >= self.reinit_after_lost
-        )
-        if self._n_processed == 0 or reseed:
-            out = steps.init()
-            if reseed:
-                self.n_reinits += 1
-            self._consecutive_lost = 0
-        else:
-            out = steps.track()
-        self._n_processed += 1
+        with profiling.span("pipeline.upload"):
+            left = np.asarray(left, np.float32)
+            nb = self.cfg.semantic.max_boxes if boxes is None else len(boxes)
+            static = steps.frame_buffers(left.shape, nb) if steps.capture else None
+            dst = static._asdict() if static is not None else {}  # the uploads' static buffers
+            online = boxes is None and self.detector is not None and self.async_detect
+            if online:
+                # before the upload: under graphs the detection of the frame
+                # before reads the static left image
+                boxes_dev, valid_dev = self._stale_boxes(static)
+            left_dev = self._to_device(left, dst.get("left"))
+            if online:
+                self._detect_async(left_dev)
+            else:
+                if boxes is None and self.detector is not None:
+                    boxes, boxes_valid = self._detect(left_dev)
+                elif boxes is None:
+                    boxes, boxes_valid = np.zeros((nb, 4), np.float32), np.zeros(nb, bool)
+                boxes_dev = self._to_device(np.asarray(boxes, np.float32), dst.get("boxes"))
+                valid_dev = self._to_device(np.asarray(boxes_valid, bool), dst.get("boxes_valid"))
+            right_dev = self._to_device(np.asarray(right, np.float32), dst.get("right"))
+            if static is None:
+                steps.frame = FrameInput(left=left_dev, right=right_dev, boxes=boxes_dev, boxes_valid=valid_dev)
+        with profiling.span("pipeline.dispatch"):
+            reseed = (
+                self.reinit_after_lost > 0 and self._consecutive_lost >= self.reinit_after_lost
+            )
+            if self._n_processed == 0 or reseed:
+                out = steps.init()
+                if reseed:
+                    self.n_reinits += 1
+                self._consecutive_lost = 0
+            else:
+                out = steps.track()
+            self._n_processed += 1
 
-        fidx = self._n_processed - 1
-        if (
-            self.local_ba_every > 0
-            and fidx % self.local_ba_every == 0
-            and steps.window_ba.ready(self._n_processed)
-        ):
-            T_cw, T_wc = steps.refine()
-            # the closed-form rigid inverse; the reference's jnp.linalg.inv
-            # agrees to float32 rounding (~1e-7)
-            out = out._replace(T_cw=T_cw, T_wc=T_wc)
-        if steps.capture:
-            # the next replay overwrites the graphs' outputs and state
-            out = TrackOutputs(*(x.clone() for x in out))
+            fidx = self._n_processed - 1
+            if (
+                self.local_ba_every > 0
+                and fidx % self.local_ba_every == 0
+                and steps.window_ba.ready(self._n_processed)
+            ):
+                T_cw, T_wc = steps.refine()
+                # the closed-form rigid inverse; the reference's jnp.linalg.inv
+                # agrees to float32 rounding (~1e-7)
+                out = out._replace(T_cw=T_cw, T_wc=T_wc)
+        with profiling.span("pipeline.readback"):
+            if steps.capture:
+                # the next replay overwrites the graphs' outputs and state
+                out = TrackOutputs(*(x.clone() for x in out))
 
-        # one-frame-deferred readback: consume frame t-1 after dispatching t
-        prev = self._pending
-        self._pending = (out, timestamp, self._queue_readback(out))
+            # one-frame-deferred readback: consume frame t-1 after dispatching t
+            prev = self._pending
+            self._pending = (out, timestamp, self._queue_readback(out))
         if prev is not None:
             self._finalize(*prev)
         self.frame_times.append(time.perf_counter() - t0)
@@ -317,13 +329,15 @@ class VOPipeline:
         """Host-side consumption of a step's outputs: waits for this
         frame's readback event alone (the sync point)."""
         ok, T_wc, done = host
-        if done is not None:
-            done.synchronize()
+        with profiling.span("pipeline.wait"):
+            if done is not None:
+                done.synchronize()
         if bool(ok):
             self._consecutive_lost = 0
         else:
             self._consecutive_lost += 1
-        self.writer.append(T_wc.numpy(), timestamp)
+        with profiling.span("pipeline.append"):
+            self.writer.append(T_wc.numpy(), timestamp)
         self.outputs.append(out)
 
     def flush(self) -> None:

@@ -9,6 +9,13 @@ frame t-1's outputs.  The frame index ``t`` is read from the state's device
 counter and every ring write lands at a device offset, so one captured CUDA
 graph of a step serves every frame (engine/graphs.py).  RANSAC draws under
 ``fold_in(PRNGKey(cfg.pnp.seed), t)`` on the device, as the reference does.
+
+The steps' stages are scopes of the tracer (``utils/profiling.stage``):
+``orb``, ``stereo`` (sparse disparity, or the dense volumes and SGM), and
+in ``track_step`` ``match`` (sections 3-5), ``pnp`` (RANSAC), ``lm``
+(motion-only BA and the pose's acceptance), then ``map`` (the map and
+state writes).  Each stamps its start when a ring is current
+(engine/graphs.StepGraphs) and does nothing otherwise.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from stereo_semantic_vo_tpu_torch.ops import epipolar as epi_ops
 from stereo_semantic_vo_tpu_torch.ops import orb as orb_ops
 from stereo_semantic_vo_tpu_torch.ops import pnp as pnp_ops
 from stereo_semantic_vo_tpu_torch.ops import stereo as stereo_ops
+from stereo_semantic_vo_tpu_torch.utils import profiling
 
 _BIG = 1 << 30
 
@@ -98,40 +106,43 @@ def init_step(state: VOState, frame: FrameInput, cfg: VOConfig) -> tuple[VOState
     """Map (re)initialization: back-project every keypoint with valid depth
     outside detection boxes at the current pose (identity on a fresh state;
     on a mid-sequence state this reseeds the map and keeps the pose)."""
-    dev = frame.left.device
-    cam = Camera.from_config(cfg.camera, dev)
-    kp = orb_ops.extract_orb(frame.left, cfg.orb)
-    st = stereo_ops.sparse_disparity(frame.left, frame.right, kp.uv, kp.valid, cam, cfg.stereo)
+    with profiling.stage("orb"):
+        dev = frame.left.device
+        cam = Camera.from_config(cfg.camera, dev)
+        kp = orb_ops.extract_orb(frame.left, cfg.orb)
+    with profiling.stage("stereo"):
+        st = stereo_ops.sparse_disparity(frame.left, frame.right, kp.uv, kp.valid, cam, cfg.stereo)
 
-    in_box = epi_ops.in_box_mask(kp.uv, frame.boxes, frame.boxes_valid, cfg.matcher.box_margin_init)
-    near = st.depth <= (cfg.camera.bf / cfg.camera.fx) * cfg.camera.th_depth
-    create = kp.valid & st.valid & near & ~in_box
+    with profiling.stage("map"):
+        in_box = epi_ops.in_box_mask(kp.uv, frame.boxes, frame.boxes_valid, cfg.matcher.box_margin_init)
+        near = st.depth <= (cfg.camera.bf / cfg.camera.fx) * cfg.camera.th_depth
+        create = kp.valid & st.valid & near & ~in_box
 
-    t = torch.clamp_min(state.frame_idx + 1, 0)
-    T_cw = state.T_cw
-    Xw = lie.transform_points(lie.T_inv(T_cw), backproject(cam, kp.uv, st.depth)[None])[0]
+        t = torch.clamp_min(state.frame_idx + 1, 0)
+        T_cw = state.T_cw
+        Xw = lie.transform_points(lie.T_inv(T_cw), backproject(cam, kp.uv, st.depth)[None])[0]
 
-    K = cfg.orb.max_keypoints
-    W = cfg.window.window_frames
-    uid = t * K + torch.arange(K, device=dev)
-    new_state = state._replace(
-        frame_idx=t,
-        T_cw=T_cw,
-        # a reseed follows a lost stretch: restart the motion model from rest
-        velocity=torch.eye(4, dtype=state.velocity.dtype, device=dev),
-        last_uv=kp.uv,
-        last_desc=kp.desc,
-        last_valid=kp.valid,
-        map_Xw=_set_region(state.map_Xw, t, K, W, Xw),
-        map_desc=_set_region(state.map_desc, t, K, W, kp.desc),
-        map_valid=_set_region(state.map_valid, t, K, W, create),
-        map_bad=_set_region(state.map_bad, t, K, W, torch.zeros_like(create)),
-        map_create_id=_set_region(state.map_create_id, t, K, W, torch.where(create, t, -100)),
-        map_uid=_set_region(state.map_uid, t, K, W, torch.where(create, uid, -1)),
-        win_T_cw=_set_row(state.win_T_cw, t, W, T_cw),
-        win_uv=_set_row(state.win_uv, t, W, kp.uv),
-        win_disp=_set_row(state.win_disp, t, W, torch.where(st.valid, st.disparity, -1.0)),
-    )
+        K = cfg.orb.max_keypoints
+        W = cfg.window.window_frames
+        uid = t * K + torch.arange(K, device=dev)
+        new_state = state._replace(
+            frame_idx=t,
+            T_cw=T_cw,
+            # a reseed follows a lost stretch: restart the motion model from rest
+            velocity=torch.eye(4, dtype=state.velocity.dtype, device=dev),
+            last_uv=kp.uv,
+            last_desc=kp.desc,
+            last_valid=kp.valid,
+            map_Xw=_set_region(state.map_Xw, t, K, W, Xw),
+            map_desc=_set_region(state.map_desc, t, K, W, kp.desc),
+            map_valid=_set_region(state.map_valid, t, K, W, create),
+            map_bad=_set_region(state.map_bad, t, K, W, torch.zeros_like(create)),
+            map_create_id=_set_region(state.map_create_id, t, K, W, torch.where(create, t, -100)),
+            map_uid=_set_region(state.map_uid, t, K, W, torch.where(create, uid, -1)),
+            win_T_cw=_set_row(state.win_T_cw, t, W, T_cw),
+            win_uv=_set_row(state.win_uv, t, W, kp.uv),
+            win_disp=_set_row(state.win_disp, t, W, torch.where(st.valid, st.disparity, -1.0)),
+        )
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     return new_state, TrackOutputs(
         T_cw=T_cw, T_wc=lie.T_inv(T_cw),
@@ -145,136 +156,141 @@ def init_step(state: VOState, frame: FrameInput, cfg: VOConfig) -> tuple[VOState
 
 @f32_geometry
 def track_step(state: VOState, frame: FrameInput, cfg: VOConfig) -> tuple[VOState, TrackOutputs]:
-    dev = frame.left.device
-    cam = Camera.from_config(cfg.camera, dev)
-    K = cfg.orb.max_keypoints
-    W = cfg.window.window_frames
-    t = state.frame_idx + 1  # index of the frame being processed
-    mcfg = cfg.matcher
-    match = fused_best_match if mcfg.resolved_backend(dev) == "pallas" else fused_best_match_plain
-
     # ---- 1+2. frontend
-    kp = orb_ops.extract_orb(frame.left, cfg.orb)
-    st = stereo_ops.sparse_disparity(frame.left, frame.right, kp.uv, kp.valid, cam, cfg.stereo)
+    with profiling.stage("orb"):
+        dev = frame.left.device
+        cam = Camera.from_config(cfg.camera, dev)
+        K = cfg.orb.max_keypoints
+        W = cfg.window.window_frames
+        t = state.frame_idx + 1  # index of the frame being processed
+        mcfg = cfg.matcher
+        match = fused_best_match if mcfg.resolved_backend(dev) == "pallas" else fused_best_match_plain
+        kp = orb_ops.extract_orb(frame.left, cfg.orb)
+    with profiling.stage("stereo"):
+        st = stereo_ops.sparse_disparity(frame.left, frame.right, kp.uv, kp.valid, cam, cfg.stereo)
 
-    age_ok = state.map_create_id > t - W
-    live = state.map_valid & ~state.map_bad & age_ok
+    with profiling.stage("match"):
+        age_ok = state.map_create_id > t - W
+        live = state.map_valid & ~state.map_bad & age_ok
 
-    # ---- 3. last-frame matching (gate < 15)
-    last_slots = _region_slots(t - 1, K, W)
-    last_has_mp = state.last_valid & live.index_select(0, last_slots)
-    T_pred = state.velocity @ state.T_cw
-    b_idx, b_dist, _ = match(state.last_desc, kp.desc, last_has_mp, kp.valid)
-    b_idx = b_idx.to(torch.int64)
-    accept3 = b_dist < mcfg.last_frame_max_dist
-    if mcfg.search_radius_px > 0:
-        # motion-prior gate: the winner must land near its map point's
-        # projection under the constant-velocity prediction
-        uv_pred3, z_pred3 = _project_uv(cam, T_pred, state.map_Xw[last_slots])
-        d3 = torch.sum((kp.uv[b_idx] - uv_pred3) ** 2, dim=-1)
-        accept3 = accept3 & (d3 <= mcfg.search_radius_px**2) & (z_pred3 > 0.05)
-    m3, q3 = _resolve_matches(last_has_mp, b_idx, b_dist, accept3, K)
-    slot3 = last_slots[q3]
-
-    # ---- 4. semantic dynamic culling
-    matched_uv_last = state.last_uv[q3]
-    in_box_cur = epi_ops.in_box_mask(kp.uv, frame.boxes, frame.boxes_valid, mcfg.box_margin_match)
-    background = m3 & ~in_box_cur
-    F = epi_ops.fit_fundamental(matched_uv_last, kp.uv, background.to(torch.float32))
-    dynamic, map_bad = cull_dynamic(F, matched_uv_last, kp.uv, m3, in_box_cur, slot3, state.map_bad, cfg)
-    n_culled = torch.sum(dynamic)
-    m3 = m3 & ~dynamic
-
-    # ---- 5. local-map matching (gate < 30, ratio > 2) over regions older
-    # than the last frame
-    slot_ids = torch.arange(state.map_valid.shape[0], device=dev)
-    in_last_region = (slot_ids // K) == ((t - 1) % W)
-    map_candidates = live & ~in_last_region & ~map_bad
-    cur_free = kp.valid & ~m3
-    if cfg.use_local_map:
-        mb_idx, mb_dist, mb_second = match(state.map_desc, kp.desc, map_candidates, cur_free)
-        mb_idx = mb_idx.to(torch.int64)
-        accept5 = (mb_dist < mcfg.local_map_max_dist) & (
-            mb_second.to(torch.float32) > mcfg.local_map_ratio * mb_dist.to(torch.float32)
-        )
+        # ---- 3. last-frame matching (gate < 15)
+        last_slots = _region_slots(t - 1, K, W)
+        last_has_mp = state.last_valid & live.index_select(0, last_slots)
+        T_pred = state.velocity @ state.T_cw
+        b_idx, b_dist, _ = match(state.last_desc, kp.desc, last_has_mp, kp.valid)
+        b_idx = b_idx.to(torch.int64)
+        accept3 = b_dist < mcfg.last_frame_max_dist
         if mcfg.search_radius_px > 0:
-            uv_pred5, z_pred5 = _project_uv(cam, T_pred, state.map_Xw)
-            d5 = torch.sum((kp.uv[mb_idx] - uv_pred5) ** 2, dim=-1)
-            accept5 = accept5 & (d5 <= mcfg.search_radius_px**2) & (z_pred5 > 0.05)
-        m5, q5 = _resolve_matches(map_candidates, mb_idx, mb_dist, accept5, K)
-        m5 = m5 & ~m3
-    else:
-        m5 = torch.zeros_like(m3)
-        q5 = torch.zeros((K,), dtype=torch.int64, device=dev)
+            # motion-prior gate: the winner must land near its map point's
+            # projection under the constant-velocity prediction
+            uv_pred3, z_pred3 = _project_uv(cam, T_pred, state.map_Xw[last_slots])
+            d3 = torch.sum((kp.uv[b_idx] - uv_pred3) ** 2, dim=-1)
+            accept3 = accept3 & (d3 <= mcfg.search_radius_px**2) & (z_pred3 > 0.05)
+        m3, q3 = _resolve_matches(last_has_mp, b_idx, b_dist, accept3, K)
+        slot3 = last_slots[q3]
 
-    # ---- 6. pose estimation
-    mp_slot = torch.where(m3, slot3, q5)
-    has_obs = m3 | m5
-    obs_Xw = state.map_Xw[mp_slot]
-    ur = urm = None
-    if cfg.ba.stereo_pose:
-        ur = kp.uv[:, 0] - st.disparity
-        urm = has_obs & st.valid
-    pnp = pnp_ops.ransac_pnp(
-        obs_Xw, kp.uv, has_obs, cam, cfg.pnp,
-        t=t, T_seed=T_pred, ur=ur, ur_mask=urm,
-    )
-    ba = ba_ops.motion_only_ba(pnp.T_cw, obs_Xw, kp.uv, has_obs, cam, cfg.ba, ur=ur, ur_mask=urm)
-    # accept the BA pose only if it keeps most of the RANSAC consensus
-    ba_keeps = torch.sum(ba.inlier_mask) >= torch.clamp_min(pnp.n_inliers // 2, cfg.pnp.min_inliers)
-    T_est = torch.where(ba_keeps, ba.T_cw, pnp.T_cw)
-    ok = pnp.ok
-    if cfg.pnp.pose_jump_max_m > 0:
-        # a pose that teleports away from the motion prediction is an
-        # aliased or degenerate consensus
-        jump = torch.linalg.vector_norm((T_est @ lie.T_inv(T_pred))[:3, 3])
-        plausible = jump <= cfg.pnp.pose_jump_max_m
-        if cfg.pnp.pose_jump_escape_inliers > 0:
-            plausible = plausible | (pnp.n_inliers >= cfg.pnp.pose_jump_escape_inliers)
-        ok = ok & plausible & torch.all(torch.isfinite(T_est))
-    T_cw = torch.where(ok, T_est, T_pred)
+        # ---- 4. semantic dynamic culling
+        matched_uv_last = state.last_uv[q3]
+        in_box_cur = epi_ops.in_box_mask(kp.uv, frame.boxes, frame.boxes_valid, mcfg.box_margin_match)
+        background = m3 & ~in_box_cur
+        F = epi_ops.fit_fundamental(matched_uv_last, kp.uv, background.to(torch.float32))
+        dynamic, map_bad = cull_dynamic(F, matched_uv_last, kp.uv, m3, in_box_cur, slot3, state.map_bad, cfg)
+        n_culled = torch.sum(dynamic)
+        m3 = m3 & ~dynamic
 
-    # ---- 7. map maintenance: every current keypoint's map point lands in
-    # region t (matched -> copy of its slot, created -> fresh entry)
-    in_box_create = epi_ops.in_box_mask(kp.uv, frame.boxes, frame.boxes_valid, mcfg.box_margin_init)
-    near = st.depth <= (cfg.camera.bf / cfg.camera.fx) * cfg.camera.th_depth
-    create = kp.valid & st.valid & near & ~has_obs & ~in_box_create
-    T_wc = lie.T_inv(T_cw)
-    Xw_new = lie.transform_points(T_wc, backproject(cam, kp.uv, st.depth)[None])[0]
+        # ---- 5. local-map matching (gate < 30, ratio > 2) over regions older
+        # than the last frame
+        slot_ids = torch.arange(state.map_valid.shape[0], device=dev)
+        in_last_region = (slot_ids // K) == ((t - 1) % W)
+        map_candidates = live & ~in_last_region & ~map_bad
+        cur_free = kp.valid & ~m3
+        if cfg.use_local_map:
+            mb_idx, mb_dist, mb_second = match(state.map_desc, kp.desc, map_candidates, cur_free)
+            mb_idx = mb_idx.to(torch.int64)
+            accept5 = (mb_dist < mcfg.local_map_max_dist) & (
+                mb_second.to(torch.float32) > mcfg.local_map_ratio * mb_dist.to(torch.float32)
+            )
+            if mcfg.search_radius_px > 0:
+                uv_pred5, z_pred5 = _project_uv(cam, T_pred, state.map_Xw)
+                d5 = torch.sum((kp.uv[mb_idx] - uv_pred5) ** 2, dim=-1)
+                accept5 = accept5 & (d5 <= mcfg.search_radius_px**2) & (z_pred5 > 0.05)
+            m5, q5 = _resolve_matches(map_candidates, mb_idx, mb_dist, accept5, K)
+            m5 = m5 & ~m3
+        else:
+            m5 = torch.zeros_like(m3)
+            q5 = torch.zeros((K,), dtype=torch.int64, device=dev)
 
-    src_Xw = torch.where(has_obs[:, None], state.map_Xw[mp_slot], Xw_new)
-    src_desc = torch.where(has_obs[:, None], state.map_desc[mp_slot], kp.desc)
-    src_create = torch.where(has_obs, state.map_create_id[mp_slot], t)
-    src_uid = torch.where(
-        has_obs, state.map_uid[mp_slot].to(torch.int64), t * K + torch.arange(K, device=dev)
-    )
-    src_valid = has_obs | create
-    src_bad = has_obs & map_bad[mp_slot]
-
-    velocity = T_cw @ lie.T_inv(state.T_cw)
-    if cfg.pnp.max_velocity_m > 0:
-        vel_sane = (torch.linalg.vector_norm(velocity[:3, 3]) <= cfg.pnp.max_velocity_m) & torch.all(
-            torch.isfinite(velocity)
+    with profiling.stage("pnp"):
+        # ---- 6. pose estimation
+        mp_slot = torch.where(m3, slot3, q5)
+        has_obs = m3 | m5
+        obs_Xw = state.map_Xw[mp_slot]
+        ur = urm = None
+        if cfg.ba.stereo_pose:
+            ur = kp.uv[:, 0] - st.disparity
+            urm = has_obs & st.valid
+        pnp = pnp_ops.ransac_pnp(
+            obs_Xw, kp.uv, has_obs, cam, cfg.pnp,
+            t=t, T_seed=T_pred, ur=ur, ur_mask=urm,
         )
-        velocity = torch.where(vel_sane, velocity, state.velocity)
+    with profiling.stage("lm"):
+        ba = ba_ops.motion_only_ba(pnp.T_cw, obs_Xw, kp.uv, has_obs, cam, cfg.ba, ur=ur, ur_mask=urm)
+        # accept the BA pose only if it keeps most of the RANSAC consensus
+        ba_keeps = torch.sum(ba.inlier_mask) >= torch.clamp_min(pnp.n_inliers // 2, cfg.pnp.min_inliers)
+        T_est = torch.where(ba_keeps, ba.T_cw, pnp.T_cw)
+        ok = pnp.ok
+        if cfg.pnp.pose_jump_max_m > 0:
+            # a pose that teleports away from the motion prediction is an
+            # aliased or degenerate consensus
+            jump = torch.linalg.vector_norm((T_est @ lie.T_inv(T_pred))[:3, 3])
+            plausible = jump <= cfg.pnp.pose_jump_max_m
+            if cfg.pnp.pose_jump_escape_inliers > 0:
+                plausible = plausible | (pnp.n_inliers >= cfg.pnp.pose_jump_escape_inliers)
+            ok = ok & plausible & torch.all(torch.isfinite(T_est))
+        T_cw = torch.where(ok, T_est, T_pred)
 
-    new_state = state._replace(
-        frame_idx=t,
-        T_cw=T_cw,
-        velocity=velocity,
-        last_uv=kp.uv,
-        last_desc=kp.desc,
-        last_valid=kp.valid,
-        map_Xw=_set_region(state.map_Xw, t, K, W, src_Xw),
-        map_desc=_set_region(state.map_desc, t, K, W, src_desc),
-        map_valid=_set_region(state.map_valid, t, K, W, src_valid),
-        map_bad=_set_region(map_bad, t, K, W, src_bad),
-        map_create_id=_set_region(state.map_create_id, t, K, W, torch.where(src_valid, src_create, -100)),
-        map_uid=_set_region(state.map_uid, t, K, W, torch.where(src_valid, src_uid, -1)),
-        win_T_cw=_set_row(state.win_T_cw, t, W, T_cw),
-        win_uv=_set_row(state.win_uv, t, W, kp.uv),
-        win_disp=_set_row(state.win_disp, t, W, torch.where(st.valid, st.disparity, -1.0)),
-    )
+    with profiling.stage("map"):
+        # ---- 7. map maintenance: every current keypoint's map point lands in
+        # region t (matched -> copy of its slot, created -> fresh entry)
+        in_box_create = epi_ops.in_box_mask(kp.uv, frame.boxes, frame.boxes_valid, mcfg.box_margin_init)
+        near = st.depth <= (cfg.camera.bf / cfg.camera.fx) * cfg.camera.th_depth
+        create = kp.valid & st.valid & near & ~has_obs & ~in_box_create
+        T_wc = lie.T_inv(T_cw)
+        Xw_new = lie.transform_points(T_wc, backproject(cam, kp.uv, st.depth)[None])[0]
+
+        src_Xw = torch.where(has_obs[:, None], state.map_Xw[mp_slot], Xw_new)
+        src_desc = torch.where(has_obs[:, None], state.map_desc[mp_slot], kp.desc)
+        src_create = torch.where(has_obs, state.map_create_id[mp_slot], t)
+        src_uid = torch.where(
+            has_obs, state.map_uid[mp_slot].to(torch.int64), t * K + torch.arange(K, device=dev)
+        )
+        src_valid = has_obs | create
+        src_bad = has_obs & map_bad[mp_slot]
+
+        velocity = T_cw @ lie.T_inv(state.T_cw)
+        if cfg.pnp.max_velocity_m > 0:
+            vel_sane = (torch.linalg.vector_norm(velocity[:3, 3]) <= cfg.pnp.max_velocity_m) & torch.all(
+                torch.isfinite(velocity)
+            )
+            velocity = torch.where(vel_sane, velocity, state.velocity)
+
+        new_state = state._replace(
+            frame_idx=t,
+            T_cw=T_cw,
+            velocity=velocity,
+            last_uv=kp.uv,
+            last_desc=kp.desc,
+            last_valid=kp.valid,
+            map_Xw=_set_region(state.map_Xw, t, K, W, src_Xw),
+            map_desc=_set_region(state.map_desc, t, K, W, src_desc),
+            map_valid=_set_region(state.map_valid, t, K, W, src_valid),
+            map_bad=_set_region(map_bad, t, K, W, src_bad),
+            map_create_id=_set_region(state.map_create_id, t, K, W, torch.where(src_valid, src_create, -100)),
+            map_uid=_set_region(state.map_uid, t, K, W, torch.where(src_valid, src_uid, -1)),
+            win_T_cw=_set_row(state.win_T_cw, t, W, T_cw),
+            win_uv=_set_row(state.win_uv, t, W, kp.uv),
+            win_disp=_set_row(state.win_disp, t, W, torch.where(st.valid, st.disparity, -1.0)),
+        )
     return new_state, TrackOutputs(
         T_cw=T_cw,
         T_wc=T_wc,

@@ -44,6 +44,7 @@ SIGNATURES = {
     "ssvo_fast_scores_levels": [_P, _P, _P, _I, _I, _F, _F, _I, _I, _P, _P],
     "ssvo_motion_hessian_gradient": [_P, _P, _P, _P, _P, _I, _F, _P, _P],
     "ssvo_hamming_distance_matrix": [_P, _P, _I, _I, _P, _P],
+    "ssvo_stamp": [_P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -29,6 +29,11 @@ state, so passing an earlier one back rewinds the stream as the eager
 steps do.  ``capture=False`` dispatches the eager steps instead (the
 counterpart of ``jax.disable_jit``); the CPU always runs them, in order,
 and ``capture=True`` there raises.
+
+A step's program spans (utils/profiling.span): each stream's ``dp.upload``
+(its frame into the static buffers) and ``dp.dispatch`` (its replay), then
+``dp.state_copy`` (the states handed out) and ``dp.stack`` (the stacked
+outputs).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from stereo_semantic_vo_tpu_torch.engine.graphs import StepGraphs
 from stereo_semantic_vo_tpu_torch.engine.state import TrackOutputs, VOState, init_state
 from stereo_semantic_vo_tpu_torch.engine.tracker import FrameInput
 from stereo_semantic_vo_tpu_torch.parallel.mesh import Mesh
+from stereo_semantic_vo_tpu_torch.utils import profiling
 
 
 def _devices(devices) -> list[torch.device]:
@@ -94,21 +100,25 @@ def make_dp_tracker(devices, cfg: VOConfig, capture: bool | None = None):
                 frame_idx = int(state.frame_idx)
             sg = stream_steps(b, state)
             if dev.type != "cuda":
-                sg.frame = FrameInput(*(x.to(dev) for x in fr))
-                out = sg.init() if frame_idx < 0 else sg.track()
+                with profiling.span("dp.upload"):
+                    sg.frame = FrameInput(*(x.to(dev) for x in fr))
+                with profiling.span("dp.dispatch"):
+                    out = sg.init() if frame_idx < 0 else sg.track()
             else:
                 s = streams.get(b)
                 if s is None or s.device != dev:
                     s = streams[b] = torch.cuda.Stream(dev)
                 s.wait_stream(torch.cuda.current_stream(dev))  # the frames, and the last reads of this stream
                 with torch.cuda.stream(s):
-                    if sg.capture:
-                        static = sg.frame_buffers(tuple(fr.left.shape), fr.boxes.shape[0])
-                        for dst, x in zip(static, fr):
-                            dst.copy_(x, non_blocking=True)
-                    else:
-                        sg.frame = FrameInput(*(x.to(dev, non_blocking=True) for x in fr))
-                    out = sg.init() if frame_idx < 0 else sg.track()
+                    with profiling.span("dp.upload"):
+                        if sg.capture:
+                            static = sg.frame_buffers(tuple(fr.left.shape), fr.boxes.shape[0])
+                            for dst, x in zip(static, fr):
+                                dst.copy_(x, non_blocking=True)
+                        else:
+                            sg.frame = FrameInput(*(x.to(dev, non_blocking=True) for x in fr))
+                    with profiling.span("dp.dispatch"):
+                        out = sg.init() if frame_idx < 0 else sg.track()
                 # the caching allocator may hand out a block again once its
                 # tensor is freed: mark the inputs used on the side stream
                 # (under graphs the stream's own buffers hold the rest)
@@ -123,15 +133,17 @@ def make_dp_tracker(devices, cfg: VOConfig, capture: bool | None = None):
         for x in (x for out in outs for x in out if x.is_cuda):  # stacked on the main streams below
             x.record_stream(torch.cuda.current_stream(x.device))
         new_states = []
-        for b, state, frame_idx, sg in ran:
-            # a static state is copied on the main stream, after its replay
-            new = VOState(*(x.clone() for x in sg.state)) if sg.capture else sg.state
-            known[b] = [(new, max(frame_idx + 1, 0)), (state, frame_idx)]
-            new_states.append(new)
+        with profiling.span("dp.state_copy"):
+            for b, state, frame_idx, sg in ran:
+                # a static state is copied on the main stream, after its replay
+                new = VOState(*(x.clone() for x in sg.state)) if sg.capture else sg.state
+                known[b] = [(new, max(frame_idx + 1, 0)), (state, frame_idx)]
+                new_states.append(new)
         first = devs[0]
         # the stack copies the outputs before the next replay overwrites them
-        stacked = TrackOutputs(*(torch.stack([x.to(first, non_blocking=True) for x in field])
-                                 for field in zip(*outs)))
+        with profiling.span("dp.stack"):
+            stacked = TrackOutputs(*(torch.stack([x.to(first, non_blocking=True) for x in field])
+                                     for field in zip(*outs)))
         return new_states, stacked
 
     step.steps = steps  # stream b -> its StepGraphs (graphs, capture ms, pool bytes, replays)

@@ -24,8 +24,10 @@ jitted step runs; the CPU dispatches eagerly.
 
 The report printed last (JSON) holds the reference's keys (``n_frames``,
 the frame times, ``ate_rmse_m`` with ``--gt``) and the device, the points
-culled as dynamic at each frame and each CUDA kernel's launches in the run
-(all 0 on the CPU, which runs the kernels' plain versions).
+culled as dynamic at each frame, each CUDA kernel's launches in the run
+(all 0 on the CPU, which runs the kernels' plain versions) and
+``stage_device_ms``, each stage's mean device ms a frame from the tracer's
+stamps (utils/profiling.py; on the CPU its host clock).
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ def main() -> None:
     from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline
     from stereo_semantic_vo_tpu_torch.io import kitti
     from stereo_semantic_vo_tpu_torch.kernels import launch_counters
+    from stereo_semantic_vo_tpu_torch.utils import profiling
 
     cfg = VOConfig.kitti(args.seq_id)
     if args.no_semantics:
@@ -99,6 +102,9 @@ def main() -> None:
     report["device"] = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
     report["n_culled_dynamic"] = [int(o.n_culled_dynamic) for o in pipe.outputs]
     report["kernel_launches"] = {name: entry.launches for name, entry in launch_counters().items()}
+    # each stage's mean device ms a frame, from the step graphs' stamps
+    trace = profiling.collect(pipe.steps.rings.values())
+    report["stage_device_ms"] = trace.stage_ms_per_frame(summary["n_frames"])
 
     if args.gt:
         from stereo_semantic_vo_tpu_torch.engine.trajectory import load_kitti_poses

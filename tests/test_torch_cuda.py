@@ -45,7 +45,10 @@ in-process one-rank NCCL group, the sharded runner's graph and the mesh
 pipeline's (its refine graph holding the collectives, 8 frames, a refine a
 frame) equal, bit for bit, to their eager runs; the replicated detector's
 graph at 2 and 4 frames equal, bit for bit, to its eager batched program;
-a replay of each of these graphs without a sync."""
+a replay of each of these graphs without a sync; the tracer's stage
+stamps inside the step graphs rising through every replay under sync
+debug mode, tiling each call, every slot written, and the state bit for
+bit that of graphs captured with the tracer off."""
 
 import dataclasses
 
@@ -1681,3 +1684,65 @@ def test_replicated_detector_graph_equals_eager_bit_for_bit(B):
             assert torch.equal(getattr(got, name), getattr(want, name)), name
     (g, static), = graph.graphs.values()
     assert g.replays == 2 and tuple(static.shape) == (B, 240, 320, 3) and not eager.graphs
+
+
+# --- the tracer's stage stamps inside the step graphs (utils/profiling.py)
+
+
+def _stamped_run(cfg, dev, n, every=0, traced=True):
+    """A graph pipeline over ``n`` frames, the last ``n - 2`` replays under
+    sync debug mode: -> the pipeline and its rings' records."""
+    from stereo_semantic_vo_tpu_torch.utils import profiling
+
+    profiling.enable(traced)
+    try:
+        pipe = VOPipeline(cfg, device=dev, local_ba_every=every, write_trajectory=False)
+    finally:
+        profiling.enable(True)
+    held = []
+    pipe._finalize = lambda out, *rest: held.append(out)
+    frames = list(_graph_frames(cfg, n))
+    for f in frames[:2]:
+        pipe.process_frame(*f)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in frames[2:]:
+            pipe.process_frame(*f)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return pipe, profiling.collect(pipe.steps.rings.values())
+
+
+@pytest.mark.parametrize("kind,every", [("sparse", 0), ("dense", 1)])
+def test_stamped_graphs_replay_rising_stamps_that_tile_each_call(kind, every):
+    """Replays under sync debug mode write their stamps on the card: a row
+    a call, every slot written, the stages in the tracker's order, stamps
+    rising through each call and from call to call, so the stages tile
+    each replay; the device's count of calls equals the host's.  Graphs
+    captured with the tracer off hold no ring, so no stamp, and the two
+    runs' states are equal bit for bit.  (The profiler's kernel counts are
+    not used here: CUPTI drops kernel records in some windows.)"""
+    dev = cuda_device()
+    cfg = _graph_cfg(kind)
+    n = 7
+    pipe, trace = _stamped_run(cfg, dev, n, every)
+    plain, off = _stamped_run(cfg, dev, n, every, traced=False)
+    assert off.rings == [] and not plain.steps.rings
+    rings = {r.name: r for r in trace.rings}
+    assert rings["track_step"].stages == ["orb", "stereo", "match", "pnp", "lm", "map", "end"]
+    assert rings["init_step"].stages == ["orb", "stereo", "map", "end"]
+    assert len(rings["init_step"].stamps) == 1 and len(rings["track_step"].stamps) == n - 1
+    for r in rings.values():
+        assert int(pipe.steps.rings[r.name].count) == pipe.steps.rings[r.name].calls == len(r.stamps)
+        assert np.all(r.stamps > 0)
+        assert np.all(np.diff(r.stamps, axis=1) >= 0) and np.all(r.stamps[1:, 0] >= r.stamps[:-1, -1])
+    if every:
+        assert rings["refine_state"].stages == ["refine", "end"]
+        assert len(rings["refine_state"].stamps) == n - cfg.window.window_frames + 1
+    track = rings["track_step"].stamps
+    assert np.array_equal(np.sum(np.diff(track, axis=1), axis=1), track[:, -1] - track[:, 0])
+    assert np.all(track[:, -1] - track[:, 0] > 0)
+    for name, x, y in zip(pipe.state._fields, pipe.state, plain.state):
+        assert torch.equal(x, y), name

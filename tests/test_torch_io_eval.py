@@ -2,7 +2,8 @@
 files and the KITTI sequence reader (io/kitti.py), the trajectory lines,
 writer and reader (engine/trajectory.py), the trajectory metrics
 (eval/ate.py), and ``run.py`` in this process with offline boxes, a
-ground-truth file and ``--no-semantics``.
+ground-truth file and ``--no-semantics`` (its report's ``stage_device_ms``
+from the tracer included).
 
 Inputs are made with numpy from a seed.  Lines and files are compared as
 strings and bytes, arrays exactly, the metrics (float64 numpy in both
@@ -239,7 +240,10 @@ def test_run_main_in_process_no_semantics(sequence, tmp_path, monkeypatch, capsy
     run.main()
     report = json.loads(capsys.readouterr().out)
     assert set(report) == {"n_frames", "median_s", "mean_s", "fps", "device", "n_culled_dynamic",
-                           "kernel_launches", "ate_rmse_m"}
+                           "kernel_launches", "stage_device_ms", "ate_rmse_m"}
+    # the tracer's stages, on the CPU's clock: the init and track steps' own
+    assert set(report["stage_device_ms"]) == {"orb", "stereo", "match", "pnp", "lm", "map"}
+    assert all(ms > 0.0 for ms in report["stage_device_ms"].values())
     assert report["n_frames"] == N_SEQ_FRAMES and report["device"] == "cpu"
     assert report["n_culled_dynamic"] == [0] * N_SEQ_FRAMES
     assert set(report["kernel_launches"].values()) == {0}  # the CPU runs the plain versions

@@ -5,9 +5,8 @@ package's; a file written by the JAX package's ``save_state`` loads into the
 port (descriptors as int32 bit patterns, the ``*_pm1`` entries skipped,
 ``frame_idx`` a host int), equal to what it saved; and a pipeline resumed
 from a checkpoint tracks bit for bit as the uninterrupted run does, with
-and without window BA.  ``StageTimer`` is the JAX package's;
-``device_trace`` writes a Chrome trace under its directory and does nothing
-for None."""
+and without window BA.  ``device_trace`` writes a Chrome trace under its
+directory and does nothing for None (the tracer: test_torch_tracing.py)."""
 
 import json
 import os
@@ -23,7 +22,7 @@ from stereo_semantic_vo_tpu_torch import interop
 from stereo_semantic_vo_tpu_torch.engine.pipeline import VOPipeline
 from stereo_semantic_vo_tpu_torch.engine.state import VOState, init_state
 from stereo_semantic_vo_tpu_torch.utils import checkpoint as TC
-from stereo_semantic_vo_tpu_torch.utils.profiling import StageTimer, device_trace
+from stereo_semantic_vo_tpu_torch.utils.profiling import device_trace
 from tests.test_torch_slice import _frame, _kitti_knobs
 from tests.torch_parity import n, one_torch_thread  # noqa: F401
 
@@ -156,20 +155,6 @@ def test_resumed_pipeline_tracks_bit_for_bit(tmp_path, local_ba_every):
     for name in VOState._fields[1:]:
         assert torch.equal(getattr(whole.state, name), getattr(second.state, name)), name
     assert whole.state.frame_idx == second.state.frame_idx == N_FRAMES - 1
-
-
-def test_stage_timer_summary():
-    t = StageTimer()
-    for _ in range(3):
-        with t.stage("a"):
-            pass
-    with t.stage("b"):
-        pass
-    s = t.summary()
-    assert s["a"]["n"] == 3 and s["b"]["n"] == 1
-    assert 0.0 <= s["a"]["median_s"] <= s["a"]["p95_s"]
-    report = t.report()
-    assert report.splitlines()[0].startswith("a ") and "b " in report
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):

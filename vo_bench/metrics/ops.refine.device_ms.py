@@ -1,0 +1,14 @@
+"""ops.refine.device_ms: device ms a loop iteration in the window refine
+graph, from its first stamp to its last, over the unprofiled iterations before
+the profiler."""
+
+
+def read(ctx):
+    try:
+        from stereo_semantic_vo_tpu_torch.utils.profiling import reading
+    except ImportError:  # a program without the tracer
+        return None
+    if ctx.spans is None:
+        return None
+    before = None if ctx.profile is None else ctx.profile.started
+    return reading(ctx.spans.of("iteration"), before, "stage_ms", "refine")
