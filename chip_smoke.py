@@ -591,6 +591,43 @@ def compare_sgm(cfg, dev) -> dict:
             "library_ms": None}
 
 
+def compare_cost_volumes(cfg, dev) -> dict:
+    """The dense path's two cost volumes (376x1241x48, r=3) in one launch,
+    bit-equal to ``cost_volume`` of each base on the card: a frame of the
+    scene and random images; the frame's time beside the plain loop's."""
+    from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
+    from stereo_semantic_vo_tpu_torch.kernels.cost_volume import cost_volumes, cost_volumes_plain
+
+    H, W, sc = cfg.camera.height, cfg.camera.width, cfg.stereo
+    D, P = sc.max_disparity, 2 * sc.block_radius + 1
+    rng = np.random.RandomState(7)
+    pairs = [tuple(torch.from_numpy(a).to(dev) for a in two_plane_frame_source(H, W)(3)),
+             tuple(torch.from_numpy(rng.uniform(0, 255, (H, W)).astype(np.float32)).to(dev) for _ in range(2))]
+    for name, (left, right) in zip(("scene frame", "random"), pairs):
+        got, want = cost_volumes(left, right, sc), cost_volumes_plain(left, right, sc)
+        torch.cuda.synchronize()
+        for base, g, w in zip(("left", "right"), got, want):
+            check(torch.equal(g, w), f"cost volumes ({name}, {base}-based) differ from the plain loop: "
+                  f"max abs {float((g - w).abs().max())}")
+    left, right = pairs[0]
+    ms = median_ms(lambda: cost_volumes(left, right, sc))
+    dev_ms = device_ms(lambda: cost_volumes(left, right, sc), ("dense_cost_volumes_kernel",), only=True)
+    plain_ms = median_ms(lambda: cost_volumes_plain(left, right, sc), reps=5, warmup=1)
+    plain_dev_ms = device_ms(lambda: cost_volumes_plain(left, right, sc), (), reps=3)
+    # the two images read once and both volumes written once; a raw cost
+    # 9 flops, its window sum 49 adds and the multiply
+    nbytes, ops = 4.0 * (2 * H * W + 2 * H * W * D), 2.0 * H * W * D * (9 + P * P + 1)
+    b = bound(nbytes, ops)
+    say(f"cost volumes: both {H}x{W}x{D} volumes of one launch bit-equal to the plain loop (a scene frame, random "
+        f"images); per frame {ms:.4f} ms kernel ({dev_ms:.4f} ms on the device), {plain_ms:.3f} ms plain "
+        f"({plain_dev_ms:.3f} ms on the device), bound {b['bound_ms'] * 1e3:.1f} us ({b['bound_by']})")
+    return {"name": "cost_volumes", "route": "cuda",
+            "source": "stereo_semantic_vo_tpu_torch/csrc/cost_volume.cu",
+            "replaces": "none (stereo_semantic_vo_tpu/ops/dense_stereo.py:cost_volume, XLA)",
+            "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "plain_device_ms": plain_dev_ms, **b, "library_ms": None}
+
+
 def local_ba_problem(cam_cfg, dev, F=4, L=2048, seed=0):
     """F poses along the path, L landmarks 8-50 m ahead, noisy observations
     with ~80% observed and ~70% of those with a stereo u_R."""
@@ -2031,8 +2068,8 @@ def drive_cli(cfg, dev, card: str) -> dict:
     gt = ground_truth(cfg, n)
     sparse = lambda k: {"extract_patches": k, "keypoint_stereo_costs": k, "fused_best_match": 2 * (k - 1),  # noqa: E731
                         "fast_scores": 0, "motion_hessian_gradient": 0, "sgm_aggregate": 0, "local_ba_blocks": 0,
-                        "hamming_distance_matrix_pallas": 0}
-    dense = {**sparse(n_s), "keypoint_stereo_costs": 0, "sgm_aggregate": 4 * n_s,
+                        "hamming_distance_matrix_pallas": 0, "cost_volumes": 0}
+    dense = {**sparse(n_s), "keypoint_stereo_costs": 0, "sgm_aggregate": 4 * n_s, "cost_volumes": n_s,
              "local_ba_blocks": cfg.ba.local_iterations * (n_s - (win - 1))}
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2221,12 +2258,12 @@ def main() -> None:
     entries = [compare_patches(cfg, dev, rng), compare_stereo(cfg, dev, rng),
                compare_matcher(cfg, dev, rng, popc_rate), compare_fast(cfg, dev, rng), compare_motion_hessian(cfg, dev),
                compare_sgm(dense_cfg, dev), compare_local_ba(cfg, dev),
-               compare_hamming_matrix(cfg, dev, rng, popc_rate)]
+               compare_hamming_matrix(cfg, dev, rng, popc_rate), compare_cost_volumes(dense_cfg, dev)]
 
     # each entry's launch counter: extract_patches, fast_scores and
     # sgm_aggregate count on the batched entries they call
     kernels = launch_counters()
-    off = {"fast_scores": 0, "motion_hessian_gradient": 0, "hamming_distance_matrix_pallas": 0}
+    off = {"fast_scores": 0, "motion_hessian_gradient": 0, "hamming_distance_matrix_pallas": 0, "cost_volumes": 0}
     by_path = {}
 
     # 3-5. the first path: sparse stereo, no window BA
@@ -2244,7 +2281,7 @@ def main() -> None:
     n_d, win = N_DENSE_FRAMES, cfg.window.window_frames
     expected = {"extract_patches": n_d, "keypoint_stereo_costs": 0,
                 "fused_best_match": 2 * (n_d - 1), "sgm_aggregate": 4 * n_d,
-                "local_ba_blocks": cfg.ba.local_iterations * (n_d - (win - 1)), **off}
+                "local_ba_blocks": cfg.ba.local_iterations * (n_d - (win - 1)), **off, "cost_volumes": n_d}
     pipe, wall, poses, by_path["dense_window_ba"] = drive_path(
         "dense + window BA", dense_cfg, dev, n_d, 1, kernels, expected)
     last = list(frames(dense_cfg, n_d + 1))[-1]
@@ -2261,7 +2298,7 @@ def main() -> None:
     expected = {"extract_patches": n_k, "keypoint_stereo_costs": n_k,
                 "fused_best_match": 2 * (n_k - 1), "sgm_aggregate": 0, "local_ba_blocks": 0,
                 "fast_scores": n_k, "motion_hessian_gradient": cfg.ba.iterations * (n_k - 1),
-                "hamming_distance_matrix_pallas": 0}
+                "hamming_distance_matrix_pallas": 0, "cost_volumes": 0}
     pipe, wall, poses, by_path["knobs"] = drive_path("knob path", knob_cfg, dev, n_k, 0, kernels, expected)
     n_both = min(n_k, N_FRAMES)
     dpos = np.abs(poses[:n_both, :3, 3] - slice_poses[:n_both, :3, 3]).max()

@@ -8,6 +8,7 @@ def launch_counters() -> dict:
     the batched entries the one-shot ones call).  A CUDA graph of the step
     (core/cuda_graph.py) adds the launches it captured on every replay."""
     from stereo_semantic_vo_tpu_torch.kernels.ba_hessian import local_ba_blocks, motion_hessian_gradient
+    from stereo_semantic_vo_tpu_torch.kernels.cost_volume import cost_volumes
     from stereo_semantic_vo_tpu_torch.kernels.fast_score import fast_scores_levels
     from stereo_semantic_vo_tpu_torch.kernels.hamming import hamming_distance_matrix_pallas
     from stereo_semantic_vo_tpu_torch.kernels.matcher import fused_best_match
@@ -18,4 +19,5 @@ def launch_counters() -> dict:
     return {"extract_patches": extract_patches_levels, "keypoint_stereo_costs": keypoint_stereo_costs,
             "fused_best_match": fused_best_match, "fast_scores": fast_scores_levels,
             "motion_hessian_gradient": motion_hessian_gradient, "sgm_aggregate": sgm_aggregate_batch,
-            "local_ba_blocks": local_ba_blocks, "hamming_distance_matrix_pallas": hamming_distance_matrix_pallas}
+            "local_ba_blocks": local_ba_blocks, "hamming_distance_matrix_pallas": hamming_distance_matrix_pallas,
+            "cost_volumes": cost_volumes}

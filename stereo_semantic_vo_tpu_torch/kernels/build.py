@@ -45,6 +45,7 @@ SIGNATURES = {
     "ssvo_motion_hessian_gradient": [_P, _P, _P, _P, _P, _I, _F, _P, _P],
     "ssvo_hamming_distance_matrix": [_P, _P, _I, _I, _P, _P],
     "ssvo_stamp": [_P, _P, _I, _I, _I, _I, _P],
+    "ssvo_dense_cost_volumes": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P],
 }
 
 

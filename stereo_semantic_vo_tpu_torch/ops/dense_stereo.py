@@ -9,7 +9,10 @@ outputs.  The aggregation dispatches on ``StereoConfig.dense_backend``:
 tensor its plain version), "xla" the plain scan; "auto" picks the kernel on
 a CUDA device and the plain scan on the CPU.  ``dense_disparity`` hands the
 left and right volumes to one aggregation call, so the kernel sweeps both
-in the same launches.
+in the same launches.  The same knob picks how the two volumes are built
+(``cost_volumes``): "pallas" is the CUDA kernel of ``kernels/cost_volume.py``,
+both grey volumes in one launch, "xla" ``cost_volume`` of each base, the
+plain loop that the kernel is held to bit for bit.
 
 Reproduced as the reference has them: the ``jnp.roll`` wraps at the image
 border (in the cost volume and the P2 planes) and the 7x7 box sum in its
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from stereo_semantic_vo_tpu_torch.core.config import StereoConfig, resolve_backend
+from stereo_semantic_vo_tpu_torch.kernels import cost_volume as cost_volume_kernel
 from stereo_semantic_vo_tpu_torch.kernels import sgm_scan
 from stereo_semantic_vo_tpu_torch.kernels.median import median3x3
 
@@ -93,6 +97,23 @@ def cost_volume(
     vol = torch.stack(costs, dim=-1)
     k = 2 * cfg.block_radius + 1
     return _box_sum(vol, cfg.block_radius) / (k * k)
+
+
+def cost_volumes(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    cfg: StereoConfig,
+    left_rgb: torch.Tensor | None = None,
+    right_rgb: torch.Tensor | None = None,
+) -> list[torch.Tensor]:
+    """The left-based and right-based ``cost_volume`` of a pair.  Grey
+    images under ``dense_backend`` "pallas" ("auto" on a CUDA tensor) take
+    the kernel, one launch for both; the colour form and "xla" build each
+    volume with ``cost_volume``."""
+    use_rgb = left_rgb is not None and right_rgb is not None
+    if not use_rgb and resolve_backend(cfg.dense_backend, left.device, "pallas", "xla") == "pallas":
+        return list(cost_volume_kernel.cost_volumes(left, right, cfg))
+    return [cost_volume(left, right, cfg, rb, left_rgb, right_rgb) for rb in (False, True)]
 
 
 def edge_p2_planes(base: torch.Tensor, cfg: StereoConfig) -> tuple[torch.Tensor, torch.Tensor]:
@@ -166,7 +187,7 @@ def dense_disparity(
 
     # both volumes live at once (2 x 89.6 MB at 1241x376x48) so one
     # aggregation call, two kernel launches, covers them
-    vols = [cost_volume(left, right, cfg, rb, left_rgb, right_rgb) for rb in (False, True)]
+    vols = cost_volumes(left, right, cfg, left_rgb, right_rgb)
     agg_l, agg_r = sgm_aggregate_batch(vols, cfg, [(p2h_l, p2v_l), (p2h_r, p2v_r)])
     del vols
     disp_l = _wta_subpixel(agg_l, cfg.min_disparity)

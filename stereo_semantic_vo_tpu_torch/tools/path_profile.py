@@ -41,7 +41,7 @@ from stereo_semantic_vo_tpu_torch.models import zoo
 
 # the hand-written kernels, by a part of their names
 HAND_KERNELS = ("extract_patches", "keypoint_stereo", "fused_best_match", "fast_scores", "motion_hessian",
-                "sgm_", "local_ba_blocks", "hamming_matrix")
+                "sgm_", "local_ba_blocks", "hamming_matrix", "dense_cost_volumes")
 
 
 def main() -> None:

@@ -10,7 +10,12 @@ Tolerances: patches (all pyramid levels in one launch) and matcher outputs exact
 and the fused stereo step's disparity, depth, valid and cost exact (the
 kernel sums in the plain version's order and rounds each operation as
 PyTorch does); SGM aggregation
-exact (min, add and subtract in the plain version's order); the local-BA
+exact (min, add and subtract in the plain version's order); both dense
+cost volumes of one launch exact against ``cost_volume`` on the card (each
+operation rounded as PyTorch's CUDA ops round it, the window summed in the
+plain order, the normalisation PyTorch's multiply by the float32
+reciprocal), and ``dense_disparity`` and five frames of the dense
+pipeline through the kernel exact against the plain loops; the local-BA
 blocks rtol 3e-5, atol 1e-4 x max|plain|, cost rtol 1e-5, and the
 motion-only build rtol 2e-5, atol 1e-6 x max|plain|, cost rtol 1e-5
 (tests/test_ba_hessian.py's bounds: float32 sums in another order); FAST
@@ -64,12 +69,13 @@ from stereo_semantic_vo_tpu_torch.engine.state import init_state
 from stereo_semantic_vo_tpu_torch.io.synthetic import two_plane_frame_source
 from stereo_semantic_vo_tpu_torch.engine.window_ba import refine_state
 from stereo_semantic_vo_tpu_torch.kernels import ba_hessian as TB
+from stereo_semantic_vo_tpu_torch.kernels import cost_volume as TCV
 from stereo_semantic_vo_tpu_torch.kernels import fast_score as TF
 from stereo_semantic_vo_tpu_torch.kernels import hamming as TH
 from stereo_semantic_vo_tpu_torch.kernels import matcher as TM
 from stereo_semantic_vo_tpu_torch.kernels import patch_extract as TP
 from stereo_semantic_vo_tpu_torch.kernels import sgm_scan as TG
-from stereo_semantic_vo_tpu_torch.ops.dense_stereo import cost_volume, edge_p2_planes
+from stereo_semantic_vo_tpu_torch.ops.dense_stereo import cost_volume, dense_disparity, edge_p2_planes
 from stereo_semantic_vo_tpu_torch.ops.orb import extract_orb, pyramid
 from stereo_semantic_vo_tpu_torch.kernels import sparse_stereo as TS
 from stereo_semantic_vo_tpu_torch.models import zoo
@@ -365,6 +371,58 @@ def test_sgm_kernel_min_key_on_signed_zeros_negatives_and_large_costs():
     want = TG.sgm_aggregate_plain(*args)
     assert bool(torch.isfinite(want).all())
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize(
+    "shape,D,r,kind",
+    [((376, 1241), 48, 3, "frame"), ((376, 1241), 48, 3, "random"), ((376, 1241), 48, 3, "constant"),
+     ((21, 40), 48, 3, "random"), ((5, 90), 48, 3, "random"), ((3, 47), 48, 3, "constant"),
+     ((31, 77), 33, 3, "random"), ((23, 100), 64, 3, "random"), ((29, 83), 20, 2, "random"),
+     ((17, 60), 7, 1, "random")],
+)
+def test_cost_volume_kernel_matches_plain(shape, D, r, kind):
+    """Both volumes of one launch bit-equal to ``cost_volume`` of each base
+    on the card: at the path's shape, W <= D (the shifts wrap more than
+    once), H < 7 (every window meets the zero pad), D off a multiple of 4
+    or 32, other radii; on a pair of constant images every raw cost is the
+    same, so the zero pad shows as smaller sums at the corners."""
+    dev = cuda_device()
+    H, W = shape
+    sc = StereoConfig(max_disparity=D, block_radius=r)
+    if kind == "frame":
+        left, right = (t(a, dev) for a in two_plane_frame_source(H, W)(1))
+    elif kind == "constant":
+        left, right = torch.full(shape, 37.0, device=dev), torch.full(shape, 40.0, device=dev)
+    else:
+        rng = np.random.RandomState(H * W + D + r)
+        left, right = (t(rng.uniform(0, 255, shape).astype(np.float32), dev) for _ in range(2))
+    got = _launched(TCV.cost_volumes, TCV.cost_volumes, left, right, sc)
+    for right_base, g in zip((False, True), got):
+        want = cost_volume(left, right, sc, right_base)
+        assert g.shape == (H, W, D) and g.is_contiguous()
+        assert torch.equal(g, want), (right_base, float((g - want).abs().max()))
+    if kind == "constant":
+        assert 0.0 < float(got[0][0, 0, 0]) < float(got[0].max())
+
+
+@pytest.mark.parametrize("refine", [True, False])
+def test_dense_disparity_kernel_equals_plain_loop(refine):
+    """``dense_disparity`` on a 1241x376 frame: "auto" on the card (one
+    cost-volume launch) equals "xla" (the plain loop, no launch) bit for
+    bit, disparity, valid and measured."""
+    dev = cuda_device()
+    left, right = (t(a, dev) for a in two_plane_frame_source(H, W)(2))
+    sc = StereoConfig(edge_p2=True, edge_p2_gamma=5.0, refine=refine)
+    before = TCV.cost_volumes.launches
+    got = dense_disparity(left, right, sc)
+    torch.cuda.synchronize()
+    assert TCV.cost_volumes.launches == before + 1
+    want = dense_disparity(left, right, dataclasses.replace(sc, dense_backend="xla"))
+    torch.cuda.synchronize()
+    assert TCV.cost_volumes.launches == before + 1
+    for name, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), name
+    assert float(got.valid.float().mean()) > 0.5
 
 
 @pytest.mark.parametrize("ths", [(20.0, 7.0), (20.0,)])
@@ -675,7 +733,7 @@ def test_dense_track_step_and_refine_read_nothing_back():
     for i in range(1, 4):
         state, _ = TT.track_step(state, TT.FrameInput(*(t(a, dev) for a in src(i)), boxes, bv), cfg)
     frame = TT.FrameInput(*(t(a, dev) for a in src(4)), boxes, bv)
-    launches = TG.sgm_aggregate_batch.launches, TB.local_ba_blocks.launches
+    launches = TG.sgm_aggregate_batch.launches, TB.local_ba_blocks.launches, TCV.cost_volumes.launches
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -686,6 +744,7 @@ def test_dense_track_step_and_refine_read_nothing_back():
     assert bool(out.pnp_ok) and int(out.n_stereo) > 50
     assert TG.sgm_aggregate_batch.launches == launches[0] + 4  # left + right, then refine
     assert TB.local_ba_blocks.launches == launches[1] + cfg.ba.local_iterations
+    assert TCV.cost_volumes.launches == launches[2] + 1  # both volumes of the frame
 
 
 @pytest.mark.parametrize("knobs", [False, True])
@@ -1454,6 +1513,7 @@ def test_graph_replay_equals_eager_bit_for_bit(kind, n, every):
     graph, lg = _graph_run(cfg, dev, n, every, capture=True)
     assert graph.steps.capture and not eager.steps.capture
     assert lg == le and lg["extract_patches"] == n
+    assert lg["cost_volumes"] == (n if kind == "dense" else 0)
     assert graph.steps.graphs["track_step"].replays == n - 2
     if every:
         assert graph.steps.graphs["refine_state"].replays == n - cfg.window.window_frames
@@ -1463,6 +1523,24 @@ def test_graph_replay_equals_eager_bit_for_bit(kind, n, every):
     for name, x, y in zip(eager.state._fields, eager.state, graph.state):
         assert torch.equal(x, y), name
     assert int(graph.state.frame_idx) == n - 1 and all(bool(o.pnp_ok) for o in graph.outputs)
+
+
+def test_dense_pipeline_on_the_cost_volume_kernel_equals_the_plain_loop():
+    """Five frames of the dense path, a refine every frame, replaying
+    graphs: ``dense_backend`` "auto" (the cost-volume kernel and B6) and
+    "xla" (the plain loops) give every output of every frame and the final
+    state bit for bit, one cost-volume launch a frame against none."""
+    dev = cuda_device()
+    cfg = _graph_cfg("dense")
+    plain_cfg = dataclasses.replace(cfg, stereo=dataclasses.replace(cfg.stereo, dense_backend="xla"))
+    kernel, lk = _graph_run(cfg, dev, 5, 1, capture=True)
+    plain, lp = _graph_run(plain_cfg, dev, 5, 1, capture=True)
+    assert lk["cost_volumes"] == 5 and lp["cost_volumes"] == 0 and lp["sgm_aggregate"] == 0
+    for a, b in zip(kernel.outputs, plain.outputs):
+        for name, x, y in zip(a._fields, a, b):
+            assert torch.equal(x, y), name
+    for name, x, y in zip(kernel.state._fields, kernel.state, plain.state):
+        assert torch.equal(x, y), name
 
 
 def test_graph_capture_and_replay_read_nothing_back():

@@ -26,6 +26,7 @@ from stereo_semantic_vo_tpu.core.config import StereoConfig
 from stereo_semantic_vo_tpu.kernels import median as JM
 from stereo_semantic_vo_tpu.ops import dense_stereo as JD
 from stereo_semantic_vo_tpu_torch.core.config import StereoConfig as TSC
+from stereo_semantic_vo_tpu_torch.kernels import cost_volume as TCV
 from stereo_semantic_vo_tpu_torch.kernels import median as TM
 from stereo_semantic_vo_tpu_torch.ops import dense_stereo as TD
 from tests.torch_parity import n, t
@@ -63,6 +64,53 @@ def test_cost_volume_exact(rgb, right_base):
     want = n(JD.cost_volume(jnp.asarray(left), jnp.asarray(right), CFG, right_base, **kw_j))
     got = n(TD.cost_volume(t(left), t(right), TCFG, right_base, **kw_t))
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("backend,rgb", [("auto", False), ("auto", True), ("xla", False), ("pallas", False),
+                                         ("pallas", True)])
+def test_cost_volumes_on_the_cpu_take_the_plain_loop(backend, rgb, monkeypatch):
+    """``cost_volumes`` on CPU tensors launches nothing: "auto" and "xla"
+    build each base with ``cost_volume``, "pallas" on grey images reaches
+    the kernel wrapper, which takes the same plain loop on the CPU, and the
+    colour form never reaches it; the volumes equal JAX's bit for bit."""
+    left, right = _pair()
+    kw_j, kw_t = {}, {}
+    if rgb:
+        lc, rc = _pair(seed=1, rgb=True)
+        kw_j = dict(left_rgb=jnp.asarray(lc), right_rgb=jnp.asarray(rc))
+        kw_t = dict(left_rgb=t(lc), right_rgb=t(rc))
+    calls = []
+    wrapper = TCV.cost_volumes
+    monkeypatch.setattr(TCV, "cost_volumes", lambda *a: calls.append(a) or wrapper(*a))
+    before = wrapper.launches
+    got = TD.cost_volumes(t(left), t(right), dataclasses.replace(TCFG, dense_backend=backend), **kw_t)
+    assert wrapper.launches == before
+    assert len(calls) == (backend == "pallas" and not rgb)
+    for right_base, g in zip((False, True), got):
+        want = n(JD.cost_volume(jnp.asarray(left), jnp.asarray(right), CFG, right_base, **kw_j))
+        np.testing.assert_array_equal(n(g), want)
+
+
+@pytest.mark.parametrize("r,D", [(3, 48), (2, 20)])
+def test_window_sums_in_the_kernels_order_equal_the_box_sum(r, D):
+    """csrc/cost_volume.cu's window sums in numpy: a thread holds a 2 x 4
+    block of outputs, starts each at +0.0 and adds every raw cost of its
+    (2 + 2r) x (4 + 2r) staged window, input rows then columns rising, to
+    each accumulator whose window holds it (the zero pad included): bit
+    for bit ``_box_sum``'s sequence of adds, on a shape that leaves ragged
+    thread blocks."""
+    left, right = _pair(H=21, W=70)
+    raw = n(TD.cost_volume(t(left), t(right), dataclasses.replace(TCFG, max_disparity=D, block_radius=0)))
+    H, W, P = raw.shape[0], raw.shape[1], 2 * r + 1
+    padded = np.pad(raw, ((r, r + 2), (r, r + 4), (0, 0)))  # the zero pad, and room for ragged blocks
+    ys, xs = np.arange(H)[:, None], np.arange(W)[None, :]
+    o, c = ys % 2, xs % 4  # an output's place in its thread's block
+    acc = np.zeros_like(raw)
+    for ir in range(2 + 2 * r):
+        for ic in range(4 + 2 * r):
+            holds = (ir - o >= 0) & (ir - o < P) & (ic - c >= 0) & (ic - c < P)
+            acc = np.where(holds[..., None], acc + padded[ys - o + ir, xs - c + ic], acc)
+    np.testing.assert_array_equal(acc, n(TD._box_sum(t(raw), r)))
 
 
 def test_wta_subpixel_exact():
