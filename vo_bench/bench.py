@@ -9,6 +9,11 @@ per-layer metric is a file of its own, found by the names in
 * ``vo_bench/configs/<config>.json``: the tracker's configuration
   (``vo_config``, every field of the port's ``VOConfig``), the pipeline's
   options (``pipeline``), its source, and what was reduced or assumed;
+  where it has a ``detector`` block, the online detector: its darknet cfg
+  file (``cfg_file``, a path from the checkout's root), confidence and NMS
+  thresholds, box slots, ``async`` (detection one frame behind the
+  tracker) and what shapes the weights that the run makes from its seed
+  (``first_frame_candidates``: ``vo_bench/darknet_weights.py``);
 * ``vo_bench/traffic/<traffic>.json``: the mix: the driver that runs it,
   the streams, the scene's parameters, warm-up, the sampled frames of the
   check, the profiled iterations and, where given, ``launch_wait_s``, the
@@ -91,6 +96,9 @@ def find_cell(name: str, root: str = ROOT, bench: dict | None = None) -> Cell:
     if entry is None:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     config = load_json(os.path.join(here, "configs", entry["config"] + ".json"))
+    if "detector" in config:
+        with open(os.path.join(root, config["detector"]["cfg_file"])) as f:
+            config["detector"]["cfg_text"] = f.read()
     traffic = load_json(os.path.join(here, "traffic", entry["traffic"] + ".json"))
     limits = load_json(os.path.join(here, "limits", name + ".json"))
     driver = load_module(os.path.join(here, "drivers", traffic["driver"] + ".py"),
@@ -165,17 +173,28 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device, t_proces
     t_scenes = time.perf_counter()
     traj_dir = tempfile.mkdtemp(prefix="vo_bench_")
     try:
+        det = cell.config.get("detector")
+        if det is not None:
+            from vo_bench import darknet_weights
+
+            det = dict(det, blob=darknet_weights.blob(det["cfg_text"], seed, det,
+                                                      scenes[0].frame(0).left, torch.device(device)))
+            if cuda:   # the peak is the program's: the blob's first-frame pass on the card is the harness's
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
         bench = SimpleNamespace(vo=vo, pipeline=cell.config["pipeline"], traffic=traffic, seed=seed,
                                 device=torch.device(device), frames=frames, port_config=port_config(vo),
-                                out_dir=traj_dir)
+                                out_dir=traj_dir, detector=det)
         drv = cell.driver(bench)
         drv.setup()
         if cuda:
             torch.cuda.synchronize()
         t_program = time.perf_counter()
+        # set-up ends here: the program is built, warmed up and idle.  The
+        # launch wait that follows is the harness's own idle pause before the
+        # window, not work of the program, and is reported apart
+        setup_s = t_program - t_process
         launch = probe.wait_fast(float(traffic["launch_wait_s"])) if probe is not None else {}
-        t_setup = time.perf_counter()
-        setup_s = t_setup - t_process
         spans = None
         profile = None
         if trace:
@@ -232,7 +251,14 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device, t_proces
         if cuda:
             torch.cuda.empty_cache()
         t_check = time.perf_counter()
-        numbers = check.check_samples(samples, lambda b, t: scenes[b].frame(t), vo, torch.device(device))
+        reference_detector = None
+        if det is not None:
+            from vo_bench.reference.detector import Detector
+
+            reference_detector = Detector(det["cfg_text"], det["blob"], det["conf_threshold"], det["nms_iou"],
+                                          det["max_boxes"], torch.device(device))
+        numbers = check.check_samples(samples, lambda b, t: scenes[b].frame(t), vo, torch.device(device),
+                                      detector=reference_detector)
         check_s = time.perf_counter() - t_check
         correct, compared = check.judge(numbers, cell.limits)
         result = {"correct": correct, "attempted": attempted, "failed": failed, "setup_s": setup_s,
@@ -243,6 +269,7 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device, t_proces
                            "max_ms": max(iteration_s) * 1e3},
                   "rate_5s": stats.rate_bins(delivered_at, t_start, seconds, 5.0, len(scenes)),
                   "memory_peak_bytes": peak, "compared": compared, "samples": len(samples),
+                  "read": {k: v for k, v in numbers.items() if k not in compared},
                   "sampled": sorted({s.t for s in samples}), "check_s": check_s}
         if not trace:
             values = {"frames_per_s": stats.frames_per_s(delivered_at, t_start, seconds, len(scenes)),

@@ -25,6 +25,33 @@ each that decides ``correct`` there:
   (frame counter, the frame's keypoints and descriptors with their
   validity, the map's descriptors, validity, dynamic flags, creation frames
   and ids, the window's keypoints and disparities).
+
+The reference steps frame t with the boxes that the program's step tracked
+it with (``Sample.boxes``): the frame's own offline boxes, or, online, the
+detections of the frame before.  In a cell whose configuration has a
+``detector``, the check holds those boxes to the plain darknet reference
+(``vo_bench/reference/detector.py``) run on the same image:
+
+* ``det_head_gap``: the largest |program - reference| over every entry of
+  the head maps that produced the boxes, over the RMS of the reference's
+  maps;
+* ``det_box_gap_px``: the largest coordinate gap between a box of the
+  program and the reference's box that it pairs with, one to one and the
+  nearest pairs first; where a box finds no pair (one side has a box that
+  the other lacks), the frame's diagonal, as far as a box can be off;
+* ``det_valid_mismatch``: how many boxes found no pair.  A reading beside
+  the others: the TF32 control moves the logits by ~0.01 and turns no
+  validity on half its seeds, so this count has no upper reading, and
+  ``det_box_gap_px`` holds the boxes' validity instead.
+
+A box is a decision on rounded numbers: a score against the threshold and
+against the other scores, an IoU against the NMS threshold.  A candidate
+whose fate in the reference turns on a decision closer to its edge than
+``SCORE_EDGE`` or ``IOU_EDGE`` may be paired but is not due: the program's
+rounding could keep or drop it.  Every other box of the reference is due.
+``det_edge_share``, the share of the reference's kept and optional
+candidates that are optional over all samples, says how much of the boxes
+that leaves unchecked.
 """
 
 from __future__ import annotations
@@ -35,6 +62,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from vo_bench.reference import detector as ref_detector
 from vo_bench.reference import lie as ref_lie
 from vo_bench.reference import state as ref_state
 from vo_bench.reference import tracker as ref_tracker
@@ -42,7 +70,19 @@ from vo_bench.reference import window_ba as ref_window_ba
 from vo_bench.reference.config import VOConfig as RefConfig
 from vo_bench.reference.precision import matmul_precision
 
-READ = ("pose_gap_m", "rot_gap_rad", "map_gap_m", "map_gap_median_m", "state_mismatch")
+TRACKER = ("pose_gap_m", "rot_gap_rad", "map_gap_m", "map_gap_median_m", "state_mismatch")
+DETECTOR = ("det_head_gap", "det_box_gap_px", "det_valid_mismatch", "det_edge_share")
+READ = TRACKER + DETECTOR
+# sound runs' head gaps (at most 3.2e-4 of an RMS near 1 over 25 seeds on
+# the H100) move a score above the 0.8 threshold by at most 0.16 x 3.2e-4
+# (the logistic's slope there), two scores' gap by twice that, ~1e-4, and
+# their boxes by ~1e-3 px, an IoU by far less than IOU_EDGE
+SCORE_EDGE = 2e-4
+IOU_EDGE = 3e-3
+# a box farther than this from every box of the other side has no pair:
+# distinct candidates lie a cell (~113 px on a 1241x376 frame) or an
+# anchor's size apart
+PAIR_PX = 8.0
 EXACT_FIELDS = ("frame_idx", "last_uv", "last_desc", "last_valid", "map_desc", "map_valid", "map_bad",
                 "map_create_id", "map_uid", "win_uv", "win_disp")
 
@@ -57,6 +97,10 @@ class Sample(NamedTuple):
     before: tuple | None     # the program's state after frame t-1 (VOState fields); None: a fresh state
     after: tuple             # the program's state after frame t
     host_T_wc: np.ndarray    # (4, 4) the pose of frame t that reached the host
+    boxes: np.ndarray        # (n_boxes, 4) float32: the boxes the program's step tracked frame t with
+    boxes_valid: np.ndarray  # (n_boxes,) bool
+    det_frame: int | None = None   # the frame whose detection made ``boxes``; None: no detection
+    det_heads: tuple | None = None  # that detection's head maps (1, C, h, w), as the program produced them
 
 
 def _ref_state(fields, device) -> ref_state.VOState:
@@ -112,17 +156,76 @@ def compare(sample: Sample, ref_after, ref_T_wc) -> dict[str, float]:
     return {k: (math.inf if not math.isfinite(v) else v) for k, v in out.items()}
 
 
-def check_samples(samples: list[Sample], frame_of, vo: dict, device, tf32: bool = False) -> dict[str, float]:
+def pair_boxes(prog: np.ndarray, due: np.ndarray, optional: np.ndarray) -> tuple[float, int]:
+    """The program's boxes (P, 4) paired one to one with the reference's due
+    and optional boxes, the nearest pairs first, by the largest coordinate
+    gap, none farther apart than ``PAIR_PX``.  -> (the largest gap of a
+    pair, how many of the program's boxes and of the due boxes found no
+    pair)."""
+    ref = np.concatenate([due, optional]).astype(np.float64)
+    gap = np.abs(prog[:, None, :] - ref[None, :, :]).max(axis=2) if len(prog) and len(ref) else np.zeros((0, 0))
+    paired_p, paired_r, worst = set(), set(), 0.0
+    for p, r in sorted(np.ndindex(*gap.shape), key=lambda pr: gap[pr]):
+        if gap[p, r] <= PAIR_PX and p not in paired_p and r not in paired_r:
+            paired_p.add(p)
+            paired_r.add(r)
+            worst = max(worst, float(gap[p, r]))
+    return worst, len(prog) - len(paired_p) + sum(r not in paired_r for r in range(len(due)))
+
+
+def compare_detection(sample: Sample, ref: ref_detector.Detections | None,
+                      diagonal: float) -> tuple[dict, tuple[int, int]]:
+    """The detector's numbers of one sampled frame, against the reference's
+    detection of the same image (None: no detection precedes the frame);
+    ``diagonal``: the frame's, in px.  -> (numbers, (the reference's
+    optional candidates, its kept and optional candidates))."""
+    valid = np.asarray(sample.boxes_valid, bool)
+    if ref is None:   # the step tracks with no box
+        return {"det_head_gap": 0.0, "det_box_gap_px": diagonal if valid.any() else 0.0,
+                "det_valid_mismatch": float(valid.sum())}, (0, 0)
+    prog = [torch.as_tensor(np.asarray(h)) for h in sample.det_heads or ()]
+    want = [h.double().cpu() for h in ref.heads]
+    rms = float(torch.cat([h.flatten() for h in want]).pow(2).mean().sqrt())
+    if [p.shape for p in prog] != [w.shape for w in want]:
+        head = math.inf
+    else:
+        head = max(float((p.double() - w).abs().max()) for p, w in zip(prog, want)) / rms
+    n = len(valid)   # the reference's slots cut to the program's, as the pipeline cuts them
+    due = ref.boxes[:n][ref.valid[:n] & ~ref.edge[:n]]
+    box, unpaired = pair_boxes(np.asarray(sample.boxes, np.float64)[valid], due, ref.optional)
+    out = {"det_head_gap": head, "det_box_gap_px": diagonal if unpaired else box,
+           "det_valid_mismatch": float(unpaired)}
+    return ({k: (math.inf if not math.isfinite(v) else v) for k, v in out.items()},
+            (len(ref.optional), len(due) + len(ref.optional)))
+
+
+def check_samples(samples: list[Sample], frame_of, vo: dict, device, tf32: bool = False,
+                  detector: ref_detector.Detector | None = None) -> dict[str, float]:
     """The largest of each number over ``samples``; ``frame_of(stream, t)``
-    gives the frame the program was handed.  Runs the reference on
-    ``device``, a sample at a time."""
+    gives the scene's frame t, whose images the program was handed.  Runs
+    the reference on ``device``, a sample at a time; with a reference
+    ``detector`` (a cell whose configuration has one) the detector's
+    numbers too, ``det_edge_share`` over all samples."""
     cfg = RefConfig.from_dict(vo)
-    worst = {k: 0.0 for k in READ}
+    worst = {k: 0.0 for k in (READ if detector is not None else TRACKER)}
+    optional = candidates = 0
     for s in samples:
-        after, T_wc = reference_step(cfg, s.before, frame_of(s.stream, s.t), s.kind, s.refine, device, tf32)
-        for k, v in compare(s, after, T_wc).items():
-            worst[k] = max(worst[k], v)
+        frame = frame_of(s.stream, s.t)._replace(boxes=s.boxes, boxes_valid=s.boxes_valid)
+        after, T_wc = reference_step(cfg, s.before, frame, s.kind, s.refine, device, tf32)
+        numbers = compare(s, after, T_wc)
         del after, T_wc
+        if detector is not None:
+            ref = None
+            if s.det_frame is not None:
+                gray = torch.from_numpy(np.ascontiguousarray(frame_of(s.stream, s.det_frame).left)).to(device)
+                ref = detector.detect(gray / 255.0, edges=(SCORE_EDGE, IOU_EDGE))
+            det, (o, c) = compare_detection(s, ref, math.hypot(*frame.left.shape))
+            numbers.update(det)
+            optional, candidates = optional + o, candidates + c
+        for k, v in numbers.items():
+            worst[k] = max(worst[k], v)
+    if detector is not None:
+        worst["det_edge_share"] = optional / candidates if candidates else 0.0
     return worst
 
 

@@ -29,7 +29,7 @@ class Driver:
         self.streams = int(bench.traffic["streams"])
         self.s = 0
         self.window_from = None
-        self._kept = []     # (step, states before or None, states after)
+        self._kept = []     # (step, states before or None, states after, (boxes, valid) as handed over)
         self.host = []      # per step: (pnp_ok (B,), T_wc (B, 4, 4)) on the host
         self._pending = None
         self._span = lambda name: contextlib.nullcontext()
@@ -81,6 +81,7 @@ class Driver:
     def _step(self, keep: bool) -> None:
         before = self.states if self.s > 0 else None
         inputs = self._upload()
+        handed = tuple(x.numpy().copy() for x in self._stage[self.s % 2][2:]) if keep else None
         with self._span("dp"):
             new, out = self.step(self.states, inputs)
         ok, T_wc = self._slots[self.s % 2]
@@ -94,7 +95,7 @@ class Driver:
             self._take_pending()
         self._pending = (ok, T_wc, done)
         if keep:
-            self._kept.append((self.s, before, new))
+            self._kept.append((self.s, before, new, handed))
         self.states = new
         self.s += 1
 
@@ -141,11 +142,11 @@ class Driver:
 
     def samples(self) -> list[Sample]:
         out = []
-        for s, before, after in self._kept:
+        for s, before, after, (boxes, valid) in self._kept:
             for b in range(self.streams):
                 out.append(Sample(b, s, "init" if s == 0 else "track", False,
                                   None if before is None else tuple(before[b]), tuple(after[b]),
-                                  self.host[s][1][b]))
+                                  self.host[s][1][b], boxes[b], valid[b]))
         return out
 
     def release(self) -> None:

@@ -8,8 +8,11 @@ and at ~1.08 again from a moment 3 to 40 s later to the end of the
 process.  The program's graphs move with it (the sparse track graph 15.8
 against 13.2 ms).  A cell whose traffic gives ``launch_wait_s`` waits
 after its set-up, idle, until the probe reads its first speed again, so
-that the window measures the state the process stays in; the wait is
-set-up.
+that the window measures the state the process stays in.  The wait is
+not in ``setup_s``: it runs no work of the program, and its length (0 to
+44 s) is the card's, so counted it swung the set-up's median by a third
+between two sets of runs of one code.  Each run reports it apart, under
+``setup_parts``.
 """
 
 from __future__ import annotations

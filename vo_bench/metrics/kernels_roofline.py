@@ -5,4 +5,5 @@ from vo_bench import readings
 
 
 def read(ctx):
-    return readings.roofline_pct(ctx, ("patches", "keypoint_stereo", "matcher", "sgm", "local_ba_blocks"))
+    return readings.roofline_pct(ctx, ("patches", "keypoint_stereo", "matcher", "cost_volumes", "sgm",
+                                       "local_ba_blocks"))

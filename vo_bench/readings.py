@@ -35,6 +35,29 @@ def span_ms_per_iteration(ctx, name: str, minus: str | None = None) -> float | N
     return stats.self_seconds(parents, children) / len(its) * 1e3
 
 
+def mean_iteration_s(ctx) -> float | None:
+    """The mean host seconds of a loop iteration before the profiler."""
+    if ctx.spans is None:
+        return None
+    its = _before_profile(ctx, ctx.spans.of("iteration"))
+    return sum(b - a for a, b in its) / len(its) if its else None
+
+
+def detection_kernels(ctx) -> tuple[list, list] | None:
+    """(intervals of the kernels on the detection stream, intervals of the
+    kernels on every other stream) in the profiled frames; the detection
+    stream is the one that the harness's ``detect`` spans launch on.  None
+    where no detection ran."""
+    if not traced(ctx):
+        return None
+    streams = ctx.profile.streams_launched_in("detect")
+    if len(streams) != 1:
+        return None
+    (det,) = streams
+    kernels = ctx.profile.kernel_intervals()
+    return ([(a, b) for s, a, b in kernels if s == det], [(a, b) for s, a, b in kernels if s != det])
+
+
 def busy_and_window(profile) -> tuple[float, float]:
     """(device busy seconds: the union of kernels, copies and fills on every
     stream, the sub-window's host seconds)."""

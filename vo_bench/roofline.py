@@ -15,9 +15,13 @@ roofline too low, never too high.
 
 The kernels, by the fragments of their CUDA names:
 B1 patches (``extract_patches``), B2 the per-keypoint stereo step
-(``keypoint_stereo``), B3 the fused matcher (``fused_best_match``), B6 SGM
-(``sgm_``: its sweeps and sum), B7 the local-BA block build
+(``keypoint_stereo``), B3 the fused matcher (``fused_best_match``), the
+dense cost volumes (``dense_cost_volumes``: both volumes of a frame in one
+launch), B6 SGM (``sgm_``: its sweeps and sum), B7 the local-BA block build
 (``local_ba_blocks``).
+
+``detector_flops`` counts a darknet cfg's model FLOPs a frame, the
+numerator of ``detector.mfu``.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ FRAGMENTS = {
     "patches": ("extract_patches",),
     "keypoint_stereo": ("keypoint_stereo",),
     "matcher": ("fused_best_match",),
+    "cost_volumes": ("dense_cost_volumes",),
     "sgm": ("sgm_",),
     "local_ba_blocks": ("local_ba_blocks",),
 }
@@ -92,6 +97,13 @@ def matcher_s(K: int, M: int, popc_rate: float) -> float:
     return sum(bound_s((Q + K) * 33 + 12 * Q, Q * K * 8.0, popc_rate) for Q in (K, M))
 
 
+def cost_volumes_s(stereo: dict, H: int, W: int) -> float:
+    """The dense cost volumes, a frame: the left and right images read once,
+    the left- and right-based (H, W, D) volumes written; the 49-term box
+    sums' adds run far under the float32 peak, so bytes bound it."""
+    return bound_s(2 * H * W * 4 + 2 * H * W * stereo["max_disparity"] * 4, 0.0)
+
+
 def sgm_s(stereo: dict, H: int, W: int) -> float:
     """B6, a dense frame: the left and right volumes and, with the refine
     pass, a third; each volume in and its sum out, the P2 planes in; ~8
@@ -126,8 +138,19 @@ def frame_bounds(vo: dict, local_ba_every: int, popc_rate: float) -> dict[str, f
     if vo["matcher"]["backend"] in kernel:
         out["matcher"] = matcher_s(K, M, popc_rate)
     if st["sparse_mode"] == "dense" and st["dense_backend"] in kernel:
+        out["cost_volumes"] = cost_volumes_s(st, H, W)
         out["sgm"] = sgm_s(st, H, W)
     if local_ba_every > 0 and vo["ba"]["local_hessian_backend"] in kernel:
         out["local_ba_blocks"] = local_ba_blocks_s(vo["window"]["window_frames"], M,
                                                    vo["ba"]["local_iterations"]) / local_ba_every
     return out
+
+
+def detector_flops(cfg_text: str) -> float:
+    """2 x the multiply-adds of every convolution of a darknet cfg at its
+    input size (darknet's ``BFLOPs``): 3.82 G for tiny YOLOv2 at 352."""
+    from vo_bench.reference import detector
+
+    shapes, convs = detector.walk(detector.parse_cfg(cfg_text))
+    return float(sum(2 * cv.n * cv.c * cv.size * cv.size * shapes[cv.index].h * shapes[cv.index].w
+                     for cv in convs))

@@ -100,7 +100,8 @@ def main(argv=None) -> int:
     line.update({"card": card_line(), "seed": args.seed, "iterations": res["iterations"], "loop": res["loop"],
                  "rate_5s": res["rate_5s"],
                  "setup_s": res["setup_s"], "setup_parts": res["setup_parts"], "samples_checked": res["samples"],
-                 "frames_checked": res["sampled"], "check_s": res["check_s"], "compared": res["compared"]})
+                 "frames_checked": res["sampled"], "check_s": res["check_s"], "read": res["read"],
+                 "compared": res["compared"]})
     print(f"vo_bench: {args.workload} seed {args.seed}: {res['iterations']} iterations, setup {res['setup_s']:.3f} s "
           f"{res['setup_parts']}; card {line['card']}", file=sys.stderr)
     for name, c in res["compared"].items():

@@ -22,11 +22,13 @@ def test_tf32_rounding_keeps_ten_mantissa_bits():
     assert bool((bits == 0).all())
 
 
-@pytest.mark.parametrize("name", ["sparse.stream1", "dense_ba.stream1", "sparse.fleet4"])
+@pytest.mark.parametrize("name", ["sparse.stream1", "dense_ba.stream1", "sparse.fleet4", "online.stream1"])
 def test_the_control_fails_the_cells_limits(name):
     cell = small(name)
-    samples, scenes = control_samples(cell, 2**36 + 1, 11, torch.device("cpu"))
+    samples, scenes, detector = control_samples(cell, 2**36 + 1, 11, torch.device("cpu"))
     numbers = check.check_samples(samples, lambda b, t: scenes[b].frame(t), cell.config["vo_config"],
-                                  torch.device("cpu"))
+                                  torch.device("cpu"), detector=detector)
     correct, _ = check.judge(numbers, cell.limits)
     assert not correct, numbers
+    if detector is not None:   # the TF32 detector alone fails the head maps' limit
+        assert numbers["det_head_gap"] > cell.limits["det_head_gap"], numbers

@@ -48,3 +48,21 @@ def test_the_reference_imports_nothing_of_the_port():
         assert names <= allowed, (p, names - allowed)
         with open(p) as f:
             assert PORT + "." not in f.read(), p   # no import by string either
+
+
+def test_the_reference_detector_loads_neither_jax_nor_either_package():
+    """Imported alone, in a fresh interpreter, the plain darknet reference
+    leaves no module of JAX, the JAX package or the port loaded."""
+    import subprocess
+    import sys
+
+    code = ("import sys; import vo_bench.reference.detector; "
+            "print(sorted({m.split('.')[0] for m in sys.modules} & {'jax', 'jaxlib', 'flax', "
+            "'stereo_semantic_vo_tpu', 'stereo_semantic_vo_tpu_torch'}))")
+    root = os.path.dirname(HERE)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=120,
+                          env=dict(os.environ, PYTHONPATH=root))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+    assert set(imports(os.path.join(HERE, "reference", "detector.py"))) <= {"__future__", "contextlib", "math",
+                                                                             "typing", "numpy", "torch", "vo_bench"}

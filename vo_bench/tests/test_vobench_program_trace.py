@@ -167,14 +167,17 @@ def test_a_program_without_the_tracer_reads_nothing_and_raises_nothing(monkeypat
 def test_the_new_entries_are_appended_and_each_has_its_reader():
     b = bench.benchmark(ROOT)
     names = [m["name"] for m in b["per_layer"]]
-    assert names[-len(NEW):] == [*(f"ops.{s}.device_ms" for s in STAGES), "ops.refine.device_ms", "step.device_ms",
+    first = names.index("ops.orb.device_ms")
+    block = b["per_layer"][first:first + len(NEW)]
+    assert names[first:first + len(NEW)] == [*(f"ops.{s}.device_ms" for s in STAGES), "ops.refine.device_ms", "step.device_ms",
                                  "step.device_ms.fleet", "device.outside_step_ms",
                                  "driver.upload_ms", "driver.event_wait_ms", "driver.append_ms",
                                  "setup.capture_ms"]
     here = os.path.join(ROOT, "vo_bench")
-    for m in b["per_layer"][-len(NEW):]:
+    for m in block:
         assert os.path.isfile(bench.reader_path(here, m)), m["name"]
-    got = {m["name"]: set(m["workloads"]) for m in b["per_layer"][-len(NEW):]}
-    assert got["setup.capture_ms"] == {"sparse.stream1", "dense_ba.stream1", "sparse.fleet4"}
+    got = {m["name"]: set(m["workloads"]) for m in block}
+    assert got["setup.capture_ms"] == {"sparse.stream1", "dense_ba.stream1", "sparse.fleet4", "online.stream1"}
     assert got["ops.refine.device_ms"] == {"dense_ba.stream1"} and got["step.device_ms.fleet"] == {"sparse.fleet4"}
-    assert np.all([got[n] == {"sparse.stream1", "dense_ba.stream1"} for n in STREAM1 if n != "setup.capture_ms"])
+    assert np.all([got[n] == {"sparse.stream1", "dense_ba.stream1", "online.stream1"}
+                   for n in STREAM1 if n != "setup.capture_ms"])

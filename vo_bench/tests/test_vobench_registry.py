@@ -152,3 +152,41 @@ def test_a_split_quantity_reads_with_its_base_files():
                               "source": "host_clock"})
     with pytest.raises(KeyError, match="frames_per_hour"):
         bench.find_cell("sparse.fleet4", ROOT, bad)
+
+
+def test_a_second_online_cell_comes_in_through_new_files_alone(tmp_path):
+    """Another darknet detector (route, shortcut, upsample, two yolo heads)
+    beside the tracker: a config file, its cfg and a limits file, with their
+    entries in BENCHMARK.json; the harness's code and the reference are
+    untouched, and the check reads the detector's numbers."""
+    from vo_bench.tests.test_vobench_detector import TWO_HEADS_CFG
+
+    root = tmp_path / "checkout"
+    shutil.copytree(os.path.join(ROOT, "vo_bench"), root / "vo_bench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), root / "BENCHMARK.json")
+    code = {str(p.relative_to(root)): p.read_bytes() for p in (root / "vo_bench").rglob("*.py")}
+    (root / "vo_bench/configs/tiny3_online.cfg").write_text(TWO_HEADS_CFG)
+    config = json.loads((root / "vo_bench/configs/kitti00_online.json").read_text())
+    config["name"] = "tiny3_online"
+    config["detector"].update(cfg_file="vo_bench/configs/tiny3_online.cfg", conf_threshold=0.6)
+    (root / "vo_bench/configs/tiny3_online.json").write_text(json.dumps(config))
+    shutil.copy(root / "vo_bench/limits/online.stream1.json", root / "vo_bench/limits/tiny3.stream1.json")
+    b = json.loads((root / "BENCHMARK.json").read_text())
+    b["configs"].append({"name": "tiny3_online", "source": "https://arxiv.org/abs/1804.02767",
+                         "file": "vo_bench/configs/tiny3_online.json", "reduced": [], "why": "a second detector"})
+    b["workloads"].append({"name": "tiny3.stream1", "config": "tiny3_online", "traffic": "stream1", "chips": 1,
+                           "why": "a second online cell"})
+    next(m for m in b["end_to_end"] if m["name"] == "frames_per_s")["workloads"].append("tiny3.stream1")
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    cell = bench.find_cell("tiny3.stream1", str(root))
+    assert cell.config["detector"]["cfg_text"] == TWO_HEADS_CFG
+    vo = cell.config["vo_config"]
+    vo["camera"].update(width=320, height=120, cx=160.0, cy=60.0)
+    vo["orb"].update(max_keypoints=128, n_levels=3, grid_rows=2, grid_cols=4)
+    cell.traffic["scene"]["period_frames"] = 128
+    cell.traffic["scene"]["mover"].update(size_px=40, x=150, y0=4, vy_px=8)
+    res = bench.measure(cell, 2**34 + 3, 3.0, False, "cpu", time.perf_counter())
+    assert res["correct"], res["compared"]
+    assert {"det_head_gap", "det_box_gap_px"} <= set(res["compared"]) and res["samples"] > 1
+    assert {str(p.relative_to(root)): p.read_bytes() for p in (root / "vo_bench").rglob("*.py")} == code

@@ -6,7 +6,9 @@ window; while a profile is open each span is also a
 ``torch.profiler.record_function`` range, so that the device trace can
 label its idle gaps with what the host was doing.  ``Profile`` holds
 ``torch.profiler`` (CPU and CUDA activity) open over a fixed number of
-loop iterations and reduces its trace to device intervals and host ranges.
+loop iterations and reduces its trace to device intervals with their CUDA
+streams, host ranges, and the host's CUDA runtime calls with the
+correlation ids that tie each to the device work it launched.
 Its first start in a process takes seconds, and once started the tracing
 slows every later launch on the host, so host spans are read only from
 the iterations before it.
@@ -71,7 +73,9 @@ class Profile:
         self.started = None  # the host clock when the profiler was asked to start
         self.t0 = self.window_s = 0.0
         self.device: list[tuple[str, str, float, float]] = []  # (name, cat, start us, dur us)
+        self.streams: list[tuple[int, int]] = []                # each device event's (stream, correlation id)
         self.ranges: list[tuple[str, float, float]] = []       # host record_function ranges (name, start us, dur us)
+        self.launches: list[tuple[str, float, float, int]] = []  # host runtime calls (name, start us, dur us, correlation)
         self.frames = 0
 
     @staticmethod
@@ -106,10 +110,15 @@ class Profile:
             if "dur" not in e:
                 continue
             cat = e.get("cat")
+            args = e.get("args", {})
             if cat in DEVICE_CATS:
                 self.device.append((e.get("name", ""), cat, float(e["ts"]), float(e["dur"])))
+                self.streams.append((int(args.get("stream", -1)), int(args.get("correlation", -1))))
             elif cat == "user_annotation":
                 self.ranges.append((e.get("name", ""), float(e["ts"]), float(e["dur"])))
+            elif cat == "cuda_runtime":
+                self.launches.append((e.get("name", ""), float(e["ts"]), float(e["dur"]),
+                                      int(args.get("correlation", -1))))
 
     def device_intervals(self) -> list[tuple[float, float]]:
         return [(ts, ts + dur) for _, _, ts, dur in self.device]
@@ -117,3 +126,17 @@ class Profile:
     def kernels(self) -> list[tuple[str, float]]:
         """(name, dur us) of every kernel."""
         return [(n, dur) for n, cat, _, dur in self.device if cat == "kernel"]
+
+    def kernel_intervals(self) -> list[tuple[int, float, float]]:
+        """(stream, start us, end us) of every kernel."""
+        return [(stream, ts, ts + dur) for (_, cat, ts, dur), (stream, _) in zip(self.device, self.streams)
+                if cat == "kernel"]
+
+    def streams_launched_in(self, span: str) -> set[int]:
+        """The streams of the kernels that runtime calls made inside the host
+        ranges ``span`` launched (a graph replay's kernels carry its
+        launch's correlation id)."""
+        inside = [(ts, ts + dur) for name, ts, dur in self.ranges if name == span]
+        corr = {c for _, ts, _, c in self.launches if any(a <= ts <= b for a, b in inside)}
+        return {stream for (_, cat, _, _), (stream, c) in zip(self.device, self.streams)
+                if cat == "kernel" and c in corr}
